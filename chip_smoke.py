@@ -9,12 +9,19 @@
    256 blocks of 64 KiB, at depth 2 and 8 and match caps 8 and 16 (exact);
 3. holds the sequence replay kernel against its plain version on the
    replay batch of the main path's frames and on RLE-heavy blocks (exact);
-4. drives the main path: ``zpack_tpu``'s Writer and Reader with the port's
-   engine on the GPU, over a deterministic 64 MiB corpus; the bytes must
-   round-trip, the host decoder must read the port's frames, and both
-   kernels must have been launched by that run;
-5. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
-6. prints one JSON line of per-kernel results, then, last,
+4. XXH3: holds the many-stream kernel against its plain version and the
+   native host hash on 128 streams of 512 KiB and on 10,011 streams of
+   241..65536 bytes, and the single-stream kernel on the 64 MiB corpus and
+   short edge lengths (exact); then drives the XXH3 entry points over the
+   entries of a 10,011-file stored archive (each hash must equal the
+   entry's CDR hash) and over the corpus, and both kernels must have been
+   launched by that run;
+5. drives the LZ4 main path: ``zpack_tpu``'s Writer and Reader with the
+   port's engine on the GPU, over a deterministic 64 MiB corpus; the bytes
+   must round-trip, the host decoder must read the port's frames, and both
+   LZ4 kernels must have been launched by that run;
+6. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
+7. prints one JSON line of per-kernel results, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no GPU is visible or any
@@ -60,9 +67,11 @@ def build_corpus(size: int, seed: int = 0) -> bytes:
     return (bytes(blob[:third]) + rec.tobytes() + noise)[:size]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the GPU (CUDA events, one warm-up)."""
-    fn()
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the GPU (CUDA events, one warm-up
+    unless ``fn`` has just run)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -76,6 +85,21 @@ def cuda_ms(fn, reps: int) -> float:
 def max_abs_err(got, want) -> int:
     return max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the host clock."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def u64_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| over int64 tensors holding u64 bits."""
+    g = got.cpu().numpy().view(np.uint64).ravel().tolist()
+    w = want.cpu().numpy().view(np.uint64).ravel().tolist()
+    return max((abs(a - b) for a, b in zip(g, w)), default=0)
 
 
 def tokenizer_blocks(corpus: bytes, device) -> torch.Tensor:
@@ -151,6 +175,130 @@ def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz
             result = {"ms": ms, "plain_ms": plain_ms}
     result["max_abs_err"] = err
     return result
+
+
+XXH3_EDGES = (241, 255, 256, 257, 1024, 1025, 1088, 1089, 16384, 16385, 65536)
+XXH3_STREAM_LENGTHS = (241, 1024, 1025, 65536, 200001)
+
+
+def xxh3_sets(corpus: bytes) -> dict:
+    """The Pallas bench shape (128 streams of 512 KiB, ``tpu_bench.py``) and
+    a many-small-files set: 10,000 lengths log-uniform in 241..65536 from
+    ``default_rng(0)`` plus the edge lengths, each cut from the corpus."""
+    slen = 512 << 10
+    rng = np.random.default_rng(0)
+    lengths = np.exp(rng.uniform(np.log(241), np.log(65536), 10000))
+    lengths = np.concatenate([np.clip(lengths.astype(np.int64), 241, 65536), XXH3_EDGES])
+    starts = rng.integers(0, len(corpus) - lengths + 1)
+    return {
+        "128 x 512 KiB": [corpus[i * slen:(i + 1) * slen] for i in range(128)],
+        f"{len(lengths)} files of 241..65536 B": [
+            corpus[a:a + n] for a, n in zip(starts.tolist(), lengths.tolist())],
+    }
+
+
+def phase_xxh3_batch(sets: dict, device, xxh3_torch, H) -> dict:
+    secret = xxh3_torch.secret_tensor(device)
+    err = 0
+    result = {}
+    for name, streams in sets.items():
+        n = len(streams)
+        mb = sum(map(len, streams)) / 1e6
+        flat, offsets = xxh3_torch.split_packed(xxh3_torch.pack(streams).to(device), n)
+        acc, hashes = xxh3_torch.accumulate_batch(flat, offsets, secret)
+        want_acc, want_hashes = xxh3_torch.hash_batch_plain(flat, offsets)
+        torch.cuda.synchronize()
+        e = max(u64_err(acc, want_acc), u64_err(hashes, want_hashes))
+        err = max(err, e)
+        host = [H.xxh3_64(s) for s in streams]
+        host_equal = hashes.cpu().numpy().view(np.uint64).tolist() == host
+        print(f"xxh3_batch {name} ({n} streams, {mb:.3f} MB): acc and hash "
+              f"{'equal' if e == 0 else 'DIFFERENT'} to plain (max_abs_err {e}), "
+              f"hashes {'equal' if host_equal else 'DIFFERENT'} to the native host XXH3")
+        if e or not host_equal:
+            raise AssertionError(f"xxh3_batch kernel disagrees on {name}")
+        ms = cuda_ms(lambda: xxh3_torch.accumulate_batch(flat, offsets, secret), 10)
+        plain_ms = cuda_ms(lambda: xxh3_torch.hash_batch_plain(flat, offsets), 1, warmup=False)
+        native_ms = host_ms(lambda: [H.xxh3_64(s) for s in streams], 3)
+        e2e_ms = host_ms(lambda: xxh3_torch.xxh3_64_batch(streams, device), 3)
+        buf = xxh3_torch.pack(streams)
+        pack_ms = host_ms(lambda: xxh3_torch.pack(streams), 3)
+        h2d_ms = host_ms(lambda: (buf.to(device), torch.cuda.synchronize()), 3)
+        print(f"xxh3_batch {name}: kernel {ms:.3f} ms ({mb / ms * 1e3:.1f} MB/s), "
+              f"plain {plain_ms:.3f} ms ({mb / plain_ms * 1e3:.1f} MB/s), "
+              f"host native loop {native_ms:.3f} ms ({mb / native_ms * 1e3:.1f} MB/s), "
+              f"xxh3_64_batch end to end {e2e_ms:.3f} ms ({mb / e2e_ms * 1e3:.1f} MB/s; "
+              f"of which pack {pack_ms:.3f} ms, h2d {h2d_ms:.3f} ms)")
+        if not result:  # the Pallas bench shape is the kernel's row
+            result = {"ms": ms, "plain_ms": plain_ms}
+    result["max_abs_err"] = err
+    return result
+
+
+def phase_xxh3_stream(corpus: bytes, device, xxh3_torch, H) -> dict:
+    secret = xxh3_torch.secret_tensor(device)
+    err = 0
+    cuts = [corpus[12345:12345 + n] for n in XXH3_STREAM_LENGTHS] + [corpus]
+    for raw in cuts:
+        data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+        acc, hashes = xxh3_torch.accumulate_stream(data, secret)
+        want_acc, want_hashes = xxh3_torch.hash_stream_plain(data)
+        torch.cuda.synchronize()
+        e = max(u64_err(acc, want_acc), u64_err(hashes, want_hashes))
+        err = max(err, e)
+        host_equal = hashes.cpu().numpy().view(np.uint64).tolist() == [H.xxh3_64(raw)]
+        print(f"xxh3_stream {len(raw)} B: acc and hash {'equal' if e == 0 else 'DIFFERENT'} "
+              f"to plain (max_abs_err {e}), hash {'equal' if host_equal else 'DIFFERENT'} "
+              f"to the native host XXH3")
+        if e or not host_equal:
+            raise AssertionError(f"xxh3_stream kernel disagrees at {len(raw)} bytes")
+    mb = len(corpus) / 1e6
+    ms = cuda_ms(lambda: xxh3_torch.accumulate_stream(data, secret), 10)
+    plain_ms = cuda_ms(lambda: xxh3_torch.hash_stream_plain(data), 1, warmup=False)
+    native_ms = host_ms(lambda: H.xxh3_64(corpus), 3)
+    e2e_ms = host_ms(lambda: xxh3_torch.xxh3_64(corpus, device), 3)
+    print(f"xxh3_stream {len(corpus)} B: kernel {ms:.3f} ms ({mb / ms * 1e3:.1f} MB/s), "
+          f"plain {plain_ms:.3f} ms ({mb / plain_ms * 1e3:.1f} MB/s), "
+          f"host native {native_ms:.3f} ms ({mb / native_ms * 1e3:.1f} MB/s), "
+          f"xxh3_64 end to end {e2e_ms:.3f} ms ({mb / e2e_ms * 1e3:.1f} MB/s)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_xxh3_main(files: list[bytes], corpus: bytes, device, xxh3_torch, H) -> dict:
+    """The XXH3 entry points over an archive's entries as the system writes
+    them: every device hash must equal the entry's CDR hash."""
+    from zpack_tpu.constants import CompressionMethod
+    from zpack_tpu.reader import Reader
+    from zpack_tpu.writer import CompressOptions, Writer
+
+    store = CompressOptions(CompressionMethod.NONE)
+    t0 = time.perf_counter()
+    w = Writer.to_heap()
+    w.write_archive([(f"f{i:05d}.bin", data, store) for i, data in enumerate(files)])
+    t_write = time.perf_counter() - t0
+    buf = w.buffer
+    entries = Reader.from_memory(buf, shared=True).file_entries
+    if len(entries) != len(files) or any(e.comp_method != CompressionMethod.NONE for e in entries):
+        raise AssertionError("archive entries are not the stored files")
+    datas = [bytes(buf[e.offset:e.offset + e.comp_size]) for e in entries]
+    xxh3_torch.reset_launches()
+    t0 = time.perf_counter()
+    got = xxh3_torch.xxh3_64_batch(datas, device)
+    t_batch = time.perf_counter() - t0
+    whole = xxh3_torch.xxh3_64(corpus, device)
+    launches = dict(xxh3_torch.LAUNCHES)
+    print(f"xxh3 main path launches: {json.dumps(launches)}")
+    if got != [e.hash for e in entries]:
+        raise AssertionError("xxh3_64_batch disagrees with the archive's CDR hashes")
+    if whole != H.xxh3_64(corpus):
+        raise AssertionError("xxh3_64 disagrees with the native host XXH3 on the corpus")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"xxh3 main path never launched {k}")
+    print(f"xxh3 archive: {len(entries)} stored entries ({len(buf)} archive bytes, written "
+          f"in {t_write:.3f} s); xxh3_64_batch equals every CDR hash ({t_batch * 1e3:.3f} ms); "
+          f"xxh3_64 of the corpus equals the native host XXH3")
+    return launches
 
 
 def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
@@ -239,8 +387,9 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    from zpack_tpu.codecs import xxh3 as H
     from zpack_tpu.codecs.lz4 import block as lz4block
-    from zpack_tpu_torch.kernels import _build, lz4_torch
+    from zpack_tpu_torch.kernels import _build, lz4_torch, xxh3_torch
     from zpack_tpu_torch.parallel import extract
     from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -267,6 +416,10 @@ def main() -> int:
 
     tok = phase_tokenize(corpus, device, lz4_torch)
     rep = phase_replay(corpus, device, lz4_torch, extract, DeviceCompressor, lz4block)
+    sets = xxh3_sets(corpus)
+    xb = phase_xxh3_batch(sets, device, xxh3_torch, H)
+    xs = phase_xxh3_stream(corpus, device, xxh3_torch, H)
+    x_launches = phase_xxh3_main(list(sets.values())[1], corpus, device, xxh3_torch, H)
     launches = phase_main_path(corpus, device, lz4_torch)
     phase_cli(corpus)
 
@@ -283,6 +436,12 @@ def main() -> int:
         {"name": "lz4_replay", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_replay.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:491",
          "launches": launches["lz4_replay"], **rep},
+        {"name": "xxh3_batch", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_batch.cu",
+         "replaces": "zpack_tpu/kernels/xxh3_pallas.py:77",
+         "launches": x_launches["xxh3_batch"], **xb},
+        {"name": "xxh3_stream", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_stream.cu",
+         "replaces": "zpack_tpu/kernels/xxh3_jax.py:72",
+         "launches": x_launches["xxh3_stream"], **xs},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

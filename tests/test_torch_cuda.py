@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from zpack_tpu.codecs import xxh3 as H
 from zpack_tpu.codecs.lz4 import block as lz4block
 from zpack_tpu.constants import CompressionMethod
 from zpack_tpu.reader import Reader
 from zpack_tpu.writer import CompressOptions, Writer
 from zpack_tpu_torch import engine
-from zpack_tpu_torch.kernels import lz4_torch
+from zpack_tpu_torch.kernels import lz4_torch, xxh3_torch
 
 torch.set_num_threads(1)
 
@@ -79,3 +80,70 @@ def test_engine_round_trip_launches_both_kernels(cuda, monkeypatch):
     finally:
         engine.uninstall()
     assert lz4_torch.LAUNCHES["lz4_tokenize"] > 0 and lz4_torch.LAUNCHES["lz4_replay"] > 0
+
+
+_XXH3_EDGES = [241, 255, 256, 257, 1024, 1025, 1088, 1089, 16384, 16385, 65536, 200001]
+
+
+def _xxh3_streams(lengths, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lengths]
+
+
+@pytest.mark.parametrize("lengths", [
+    _XXH3_EDGES,
+    list(np.random.default_rng(20).integers(241, 70000, 1000)) + [0, 16, 240],
+], ids=["edges", "ragged-1000"])
+def test_xxh3_batch_kernel_matches_plain(cuda, lengths):
+    streams = _xxh3_streams(lengths, 21)
+    long = [s for s in streams if len(s) > H.MIDSIZE_MAX]
+    flat, offsets = xxh3_torch.split_packed(xxh3_torch.pack(long).to(cuda), len(long))
+    acc, hashes = xxh3_torch.accumulate_batch(flat, offsets, xxh3_torch.secret_tensor(cuda))
+    want_acc, want_hashes = xxh3_torch.hash_batch_plain(flat, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want_acc) and torch.equal(hashes, want_hashes)
+    assert xxh3_torch.xxh3_64_batch(streams, cuda) == [H.xxh3_64(s) for s in streams]
+
+
+def test_xxh3_batch_kernel_rows_in_place(cuda):
+    raw = _xxh3_streams([50000], 22)[0]
+    flat = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(cuda)
+    rows = [[8, 1000], [16, 4000], [5000, 300], [96, 44000], [0, 50000], [49752, 241]]
+    offsets = torch.tensor(rows, dtype=torch.int64, device=cuda)
+    acc, hashes = xxh3_torch.accumulate_batch(flat, offsets, xxh3_torch.secret_tensor(cuda))
+    want_acc, want_hashes = xxh3_torch.hash_batch_plain(flat, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want_acc) and torch.equal(hashes, want_hashes)
+    assert hashes.cpu().numpy().view(np.uint64).tolist() == [
+        H.xxh3_64(raw[s:s + n]) for s, n in rows]
+
+
+def test_xxh3_batch_kernel_rejected_rows_yield_zeros(cuda):
+    """Rows the plain version rejects (unaligned, short, outside flat) read
+    nothing on the card; the valid row beside them is still hashed."""
+    raw = _xxh3_streams([5000], 25)[0]
+    flat = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(cuda)
+    rows = [[4, 1000], [0, 240], [4096, 1000], [-8, 1000], [0, 5000]]
+    offsets = torch.tensor(rows, dtype=torch.int64, device=cuda)
+    acc, hashes = xxh3_torch.accumulate_batch(flat, offsets, xxh3_torch.secret_tensor(cuda))
+    torch.cuda.synchronize()
+    assert not acc[:4].any() and not hashes[:4].any()
+    assert hashes[4:].cpu().numpy().view(np.uint64).tolist() == [H.xxh3_64(raw)]
+
+
+@pytest.mark.parametrize("n", _XXH3_EDGES + [(4 << 20) + 7])
+def test_xxh3_stream_kernel_matches_plain(cuda, n):
+    raw = _xxh3_streams([n], n)[0]
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(cuda)
+    acc, hashes = xxh3_torch.accumulate_stream(data, xxh3_torch.secret_tensor(cuda))
+    want_acc, want_hashes = xxh3_torch.hash_stream_plain(data)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want_acc) and torch.equal(hashes, want_hashes)
+    assert xxh3_torch.xxh3_64(raw, cuda) == H.xxh3_64(raw)
+
+
+def test_xxh3_entry_points_launch_kernels(cuda):
+    xxh3_torch.reset_launches()
+    xxh3_torch.xxh3_64_batch(_xxh3_streams([300, 5000], 23), cuda)
+    xxh3_torch.xxh3_64(_xxh3_streams([5000], 24)[0], cuda)
+    assert xxh3_torch.LAUNCHES == {"xxh3_batch": 1, "xxh3_stream": 1}

@@ -1,6 +1,6 @@
 """The port never imports jax: with ``sys.modules["jax"] = None`` any jax
-import raises, and a Writer/Reader round trip through the port still
-works."""
+import raises, a Writer/Reader round trip through the port still works, and
+the XXH3 entry points hash on the CPU."""
 
 import os
 import subprocess
@@ -21,7 +21,8 @@ torch.set_num_threads(1)
 import zpack_tpu_torch
 from zpack_tpu_torch import engine
 from zpack_tpu_torch.cli import main as cli_main
-from zpack_tpu_torch.kernels import _build, lz4_torch
+from zpack_tpu_torch.kernels import _build, lz4_torch, xxh3_torch
+from zpack_tpu.codecs import xxh3 as H
 from zpack_tpu_torch.parallel import extract, pipeline
 from zpack_tpu.constants import CompressionMethod
 from zpack_tpu.reader import Reader
@@ -34,6 +35,9 @@ w = Writer.to_heap()
 w.write_archive([("d.bin", data, CompressOptions(CompressionMethod.LZ4, 1))])
 assert Reader.from_memory(w.buffer, shared=True).read_file("d.bin") == data
 engine.uninstall()
+streams = [data[:n] for n in (0, 240, 241, 5000, 70000)]
+assert xxh3_torch.xxh3_64_batch(streams, "cpu") == [H.xxh3_64(s) for s in streams]
+assert xxh3_torch.xxh3_64(data, "cpu") == H.xxh3_64(data)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m.startswith(("zpack_tpu.kernels", "zpack_tpu.parallel.pipeline",
                                  "zpack_tpu.parallel.extract")))

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``zpack_tpu_torch/csrc``).
 
-The kernels compile at first use with ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes`` — the
-build-at-first-use pattern of ``zpack_tpu/native.py``.  The library is
-keyed by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads at once.  It lands in ``zpack_tpu_torch/_build/``,
-which git ignores.
+The kernels compile at first use with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and link into one shared library
+with a plain C interface, loaded with ``ctypes`` — the build-at-first-use
+pattern of ``zpack_tpu/native.py``.  The library is keyed by a hash of the
+sources, headers and flags, so an edited source rebuilds and an unchanged
+one loads at once.  It lands in ``zpack_tpu_torch/_build/``, which git
+ignores.
 
 Every C entry point takes each pointer and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
@@ -28,7 +29,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+BUILD_TIMEOUT_S = 600
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -40,6 +42,10 @@ class KernelBuildError(RuntimeError):
 
 def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -56,32 +62,51 @@ def _nvcc() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"zpack_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> pathlib.Path:
-    """Compile the sources unless the library for them already exists.
-    Writes to a temporary name and renames, so concurrent builders never
-    load a half-written file."""
+    """Compile the sources unless the library for them already exists: one
+    ``nvcc -c`` per source, all at once, then one link.  Works in a
+    temporary directory and renames the library into place, so a process
+    building at the same time never loads a half-written file."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        procs = []
+        try:
+            for src, obj in zip(_sources(), objs):
+                # each compiler writes its messages to a file: a full pipe
+                # would stall it while another one is awaited
+                with open(f"{obj}.log", "w") as log:
+                    procs.append(subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                        stdout=log, stderr=subprocess.STDOUT))
+            failed = []
+            for src, obj, proc in zip(_sources(), objs, procs):
+                if proc.wait(timeout=BUILD_TIMEOUT_S) != 0:
+                    with open(f"{obj}.log") as log:
+                        failed.append(f"{src.name} ({proc.returncode}):\n{log.read()[-4000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise KernelBuildError("nvcc failed: " + "\n".join(failed))
+        out = os.path.join(tmp, so.name)
+        res = subprocess.run([nvcc, "-shared", "-o", out, *objs], capture_output=True,
+                             text=True, timeout=BUILD_TIMEOUT_S)
         if res.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise KernelBuildError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(out, so)
     return so
 
 
@@ -96,6 +121,11 @@ def lib() -> ctypes.CDLL:
             cdll.zp_lz4_tokenize.argtypes = [p, i, i, i, i, p, p, p, p]
             cdll.zp_lz4_replay.restype = i
             cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p]
+            i64 = ctypes.c_longlong
+            cdll.zp_xxh3_batch.restype = i
+            cdll.zp_xxh3_batch.argtypes = [p, i64, p, i, p, p, p, p]
+            cdll.zp_xxh3_stream.restype = i
+            cdll.zp_xxh3_stream.argtypes = [p, i64, p, p, p, p, p]
             cdll.zp_error_string.restype = ctypes.c_char_p
             cdll.zp_error_string.argtypes = [i]
             _LIB = cdll

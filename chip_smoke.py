@@ -20,8 +20,16 @@
    port's engine on the GPU, over a deterministic 64 MiB corpus; the bytes
    must round-trip, the host decoder must read the port's frames, and both
    LZ4 kernels must have been launched by that run;
-6. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
-7. prints one JSON line of per-kernel results, then, last,
+6. zstd compress: a first ``DeviceCompressor.compress_zstd`` run over a
+   16 MiB cut of the corpus records the Huffman and FSE batches it builds;
+   the Huffman literal-stream kernel and the FSE sequence-stream kernel are
+   held against their plain versions on those batches (exact); then the
+   zstd main path runs again with the launch counters at zero, and its
+   frame must equal the host-entropy frame, decode natively, and both
+   kernels must have been launched by that run (a 1 MiB cut must also
+   decode with the python oracle);
+7. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
+8. prints one JSON line of per-kernel results, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no GPU is visible or any
@@ -43,6 +51,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS_BYTES = 64 << 20
 BLOCK = 64 << 10
+ZSTD_BYTES = 16 << 20
 
 
 def build_corpus(size: int, seed: int = 0) -> bytes:
@@ -346,6 +355,137 @@ def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
     return launches
 
 
+def zstd_cut(corpus: bytes, size: int) -> bytes:
+    """The first ``size / 3`` bytes of each third of the corpus (prose,
+    records, noise), so that Huffman-heavy, sequence-heavy and raw zstd
+    blocks all occur."""
+    third = len(corpus) // 3
+    return b"".join(corpus[base:base + size // 3] for base in (0, third, 2 * third))
+
+
+def record_zstd_batches(cut: bytes, device, DeviceCompressor, huffman_torch, fse_torch) -> dict:
+    """One ``compress_zstd`` run whose encoders keep the batches they are
+    given: the inputs of the two kernel checks, at the main path's shapes."""
+
+    class Huffman(huffman_torch.TorchHuffmanEncoder):
+        batches: list = []
+
+        def encode_batch(self, streams, tables):
+            self.batches.append(huffman_torch.build_batch(streams, tables))
+            return super().encode_batch(streams, tables)
+
+    class Sequences(fse_torch.TorchSequenceEncoder):
+        batches: list = []
+
+        def encode_batch(self, blocks, tables):
+            self.batches.append(fse_torch.build_batch(blocks, tables))
+            return super().encode_batch(blocks, tables)
+
+    dc = DeviceCompressor(device)
+    dc._huff_enc, dc._fse_enc = Huffman(device), Sequences(device)
+    t0 = time.perf_counter()
+    frame = dc.compress_zstd(cut, 3)
+    print(f"zstd first run (records the entropy batches): {time.perf_counter() - t0:.3f} s, "
+          f"{len(Huffman.batches)} Huffman and {len(Sequences.batches)} FSE batches")
+    if not Huffman.batches or not Sequences.batches:
+        raise AssertionError("the zstd main path built no Huffman or no FSE batch")
+    return {"huffman": Huffman.batches, "fse": Sequences.batches, "frame": frame}
+
+
+def _check_batches(name: str, batches: list, device, kernel, plain, args: tuple,
+                   total_ok) -> dict:
+    """Hold ``kernel`` against ``plain`` on every batch (words and
+    total_bits exact, and ``total_ok(total_bits, batch)`` true); time one
+    pass over all batches."""
+    tensors = [[torch.from_numpy(b[k]).to(device) for k in args] for b in batches]
+
+    def run(fn):
+        return [fn(*t, n_words=b["n_words"]) for t, b in zip(tensors, batches)]
+
+    got, want = run(kernel), run(plain)
+    torch.cuda.synchronize()
+    err = 0
+    for (gw, gt), (ww, wt), b in zip(got, want, batches):
+        err = max(err, int((gw.long() - ww.long()).abs().max()) if gw.numel() else 0,
+                  int((gt.long() - wt.long()).abs().max()))
+        if not total_ok(gt.cpu().numpy().astype(np.int64), b):
+            raise AssertionError(f"{name}: total_bits disagree with the host's bound or count")
+    rows = sum(len(b[args[-1]]) - 1 for b in batches)
+    print(f"{name} ({len(batches)} batches, {rows} streams, "
+          f"{sum(b['n_words'] for b in batches)} words): "
+          f"{'equal' if err == 0 else 'DIFFERENT'} to plain (max_abs_err {err})")
+    if err:
+        raise AssertionError(f"{name} kernel != plain on the zstd main path's batches")
+    ms = cuda_ms(lambda: run(kernel), 10)
+    plain_ms = cuda_ms(lambda: run(plain), 2, warmup=False)
+    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (all batches of one run)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_huffman(batches: list, device, huffman_torch) -> dict:
+    nsym = sum(len(b["syms"]) for b in batches)
+    print(f"huffman_encode input: {nsym} literal symbols")
+    return _check_batches("huffman_encode", batches, device, huffman_torch.encode_streams,
+                          huffman_torch.encode_streams_plain, huffman_torch.BATCH_ARGS,
+                          lambda total, b: np.array_equal(total, b["total_bits"]))
+
+
+def phase_fse(batches: list, device, fse_torch) -> dict:
+    nseq = sum(len(b["fields"]) for b in batches)
+    longest = max(int((b["seq_off"][1:] - b["seq_off"][:-1]).max()) for b in batches)
+    print(f"fse_encode input: {nseq} sequences, longest block {longest}")
+    return _check_batches("fse_encode", batches, device, fse_torch.encode_seq_streams,
+                          fse_torch.encode_seq_streams_plain, fse_torch.BATCH_ARGS,
+                          lambda total, b: bool((total + 1 <= b["ub_bits"]).all()))
+
+
+def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceCompressor,
+               huffman_torch, fse_torch) -> dict:
+    from zpack_tpu import native
+    from zpack_tpu.codecs.zstd import frame as ZF
+    from zpack_tpu.utils.observe import metrics
+
+    dc = DeviceCompressor(device)  # level 1, 64 KiB blocks, as dryrun_multichip
+    huffman_torch.reset_launches()
+    fse_torch.reset_launches()
+    metrics.reset()
+    t0 = time.perf_counter()
+    frame = dc.compress_zstd(cut, 3)
+    t_dev = time.perf_counter() - t0
+    launches = {**huffman_torch.LAUNCHES, **fse_torch.LAUNCHES}
+    phases = metrics.snapshot()
+    print(f"zstd main path launches: {json.dumps(launches)}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"zstd main path never launched {k}")
+    mb = len(cut) / 1e6
+    print(f"zstd main path ({len(cut)} bytes, device entropy): {mb / t_dev:.2f} MB/s "
+          f"({t_dev:.3f} s), ratio {len(cut) / len(frame):.4f} ({len(frame)} bytes)")
+    print("zstd main path phases: " + json.dumps(phases, sort_keys=True))
+    t0 = time.perf_counter()
+    host = dc.compress_zstd(cut, 3, device_entropy=False)
+    t_host = time.perf_counter() - t0
+    print(f"zstd host-entropy frame: {mb / t_host:.2f} MB/s ({t_host:.3f} s)")
+    if frame != host or frame != first_frame:
+        raise AssertionError("zstd: the device-entropy frame differs from the host-entropy frame")
+    t0 = time.perf_counter()
+    out = native.zstd_decompress(frame, len(cut))
+    t_dec = time.perf_counter() - t0
+    if out != cut:
+        raise AssertionError("zstd: the native decoder does not give the cut back")
+    small = zstd_cut(corpus, 1 << 20)
+    if ZF.decompress(dc.compress_zstd(small, 3)) != small:
+        raise AssertionError("zstd: the python oracle does not decode the 1 MiB cut's frame")
+    t0 = time.perf_counter()
+    nat = native.zstd_compress(cut, 3)
+    t_nat = time.perf_counter() - t0
+    print(f"zstd: frame equals the host-entropy frame, native decode OK ({t_dec:.3f} s), "
+          f"1 MiB frame decodes with the python oracle; for scale only (other bytes): "
+          f"native.zstd_compress level 3 {mb / t_nat:.2f} MB/s ({t_nat:.3f} s), "
+          f"ratio {len(cut) / len(nat):.4f}")
+    return launches
+
+
 def phase_cli(corpus: bytes) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "src")
@@ -389,7 +529,7 @@ def main() -> int:
         return 1
     from zpack_tpu.codecs import xxh3 as H
     from zpack_tpu.codecs.lz4 import block as lz4block
-    from zpack_tpu_torch.kernels import _build, lz4_torch, xxh3_torch
+    from zpack_tpu_torch.kernels import _build, fse_torch, huffman_torch, lz4_torch, xxh3_torch
     from zpack_tpu_torch.parallel import extract
     from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -421,6 +561,12 @@ def main() -> int:
     xs = phase_xxh3_stream(corpus, device, xxh3_torch, H)
     x_launches = phase_xxh3_main(list(sets.values())[1], corpus, device, xxh3_torch, H)
     launches = phase_main_path(corpus, device, lz4_torch)
+    cut = zstd_cut(corpus, ZSTD_BYTES)
+    rec = record_zstd_batches(cut, device, DeviceCompressor, huffman_torch, fse_torch)
+    hf = phase_huffman(rec["huffman"], device, huffman_torch)
+    fs = phase_fse(rec["fse"], device, fse_torch)
+    z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor,
+                            huffman_torch, fse_torch)
     phase_cli(corpus)
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -442,6 +588,13 @@ def main() -> int:
         {"name": "xxh3_stream", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_stream.cu",
          "replaces": "zpack_tpu/kernels/xxh3_jax.py:72",
          "launches": x_launches["xxh3_stream"], **xs},
+        {"name": "huffman_encode", "route": "cuda",
+         "source": "zpack_tpu_torch/csrc/huffman_encode.cu",
+         "replaces": "zpack_tpu/kernels/huffman_jax.py:83",
+         "launches": z_launches["huffman_encode"], **hf},
+        {"name": "fse_encode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_encode.cu",
+         "replaces": "zpack_tpu/kernels/fse_jax.py:83",
+         "launches": z_launches["fse_encode"], **fs},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

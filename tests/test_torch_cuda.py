@@ -10,13 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from zpack_tpu import native
 from zpack_tpu.codecs import xxh3 as H
 from zpack_tpu.codecs.lz4 import block as lz4block
+from zpack_tpu.codecs.zstd import encode as zenc, huffman as zhuf, seq as zseq
 from zpack_tpu.constants import CompressionMethod
 from zpack_tpu.reader import Reader
 from zpack_tpu.writer import CompressOptions, Writer
 from zpack_tpu_torch import engine
-from zpack_tpu_torch.kernels import lz4_torch, xxh3_torch
+from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch, xxh3_torch
+from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
 torch.set_num_threads(1)
 
@@ -147,3 +150,81 @@ def test_xxh3_entry_points_launch_kernels(cuda):
     xxh3_torch.xxh3_64_batch(_xxh3_streams([300, 5000], 23), cuda)
     xxh3_torch.xxh3_64(_xxh3_streams([5000], 24)[0], cuda)
     assert xxh3_torch.LAUNCHES == {"xxh3_batch": 1, "xxh3_stream": 1}
+
+
+def _huff_streams():
+    """Ragged literal streams over different alphabets, one of 65,536 and
+    one of 100,000 symbols, with their host Huffman tables."""
+    rng = np.random.default_rng(30)
+    streams, tables = [], []
+    for n, nsym in [(1, 2), (31, 5), (64, 48), (333, 100), (1000, 256), (5000, 30),
+                    (65536, 48), (100000, 200), (7, 3)]:
+        s = rng.choice(np.arange(nsym, dtype=np.uint8), size=n,
+                       p=rng.dirichlet(np.ones(nsym) * 0.3)).astype(np.uint8)
+        s[: min(n, 2)] = [0, 1][: min(n, 2)]  # at least two symbols
+        t = zhuf.build_encode_table(np.bincount(s, minlength=256))
+        if t is not None:
+            streams.append(s)
+            tables.append(t)
+    return streams, tables
+
+
+def test_huffman_encode_kernel_matches_plain(cuda):
+    streams, tables = _huff_streams()
+    assert max(map(len, streams)) == 100000 and 65536 in map(len, streams)
+    batch = huffman_torch.build_batch(streams, tables)
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in huffman_torch.BATCH_ARGS]
+    got = huffman_torch.encode_streams(*args, n_words=batch["n_words"])
+    want = huffman_torch.encode_streams_plain(*args, n_words=batch["n_words"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].cpu().numpy().tolist() == batch["total_bits"].tolist()
+    enc = huffman_torch.TorchHuffmanEncoder(cuda)
+    assert enc.encode_batch(streams, tables) == [
+        zhuf._encode_stream(s, t) for s, t in zip(streams, tables)]
+
+
+def _seq_blocks():
+    """Sequence blocks in every table mode: random (custom FSE), a long one
+    of 5,000 sequences, n = 1, all-RLE, and one in the predefined range."""
+    rng = np.random.default_rng(31)
+
+    def block(n, ll_hi=300, ml_hi=80, of_hi=70000):
+        return (rng.integers(0, ll_hi, n), rng.integers(3, ml_hi, n), rng.integers(1, of_hi, n))
+
+    blocks = [block(int(rng.integers(1, 300))) for _ in range(6)]
+    blocks += [block(5000), block(1), block(500, 8, 12, 40),
+               (np.full(40, 5), np.full(40, 4), np.full(40, 1))]
+    blocks = [tuple(np.asarray(x, np.int64).tolist() for x in b) for b in blocks]
+    return blocks, [zenc.sequence_section_header(*b)[1] for b in blocks]
+
+
+def test_fse_encode_kernel_matches_plain(cuda):
+    blocks, tables = _seq_blocks()
+    assert any(t.al == 0 for ts in tables for t in ts)
+    batch = fse_torch.build_batch(blocks, tables)
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in fse_torch.BATCH_ARGS]
+    got = fse_torch.encode_seq_streams(*args, n_words=batch["n_words"])
+    want = fse_torch.encode_seq_streams_plain(*args, n_words=batch["n_words"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    enc = fse_torch.TorchSequenceEncoder(cuda)
+    assert enc.encode_batch(blocks, tables) == [
+        zseq.encode_sequences(*b, *t) for b, t in zip(blocks, tables)]
+
+
+def test_compress_zstd_on_cuda_launches_both_kernels(cuda):
+    rng = np.random.default_rng(32)
+    rec = np.zeros((20000, 32), np.uint8)
+    rec[:, 0] = 0x7F
+    rec[:, 1] = np.arange(20000) % 17
+    rec[:, 6:14] = rng.integers(0, 4, (20000, 8))
+    data = (_text(600000, 33) + rec.tobytes()
+            + rng.integers(0, 256, 200000, dtype=np.uint8).tobytes() + bytes(70001))
+    dc = DeviceCompressor(cuda)
+    huffman_torch.reset_launches()
+    fse_torch.reset_launches()
+    got = dc.compress_zstd(data, 3)
+    assert huffman_torch.LAUNCHES["huffman_encode"] > 0 and fse_torch.LAUNCHES["fse_encode"] > 0
+    assert got == dc.compress_zstd(data, 3, device_entropy=False)
+    assert native.zstd_decompress(got, len(data)) == data

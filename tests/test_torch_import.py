@@ -1,6 +1,7 @@
 """The port never imports jax: with ``sys.modules["jax"] = None`` any jax
 import raises, a Writer/Reader round trip through the port still works, and
-the XXH3 entry points hash on the CPU."""
+the XXH3 entry points hash and the zstd compress path encodes on the
+CPU."""
 
 import os
 import subprocess
@@ -38,6 +39,10 @@ engine.uninstall()
 streams = [data[:n] for n in (0, 240, 241, 5000, 70000)]
 assert xxh3_torch.xxh3_64_batch(streams, "cpu") == [H.xxh3_64(s) for s in streams]
 assert xxh3_torch.xxh3_64(data, "cpu") == H.xxh3_64(data)
+from zpack_tpu.codecs.zstd import frame as ZF
+for B in (4096, 65536):
+    fr = pipeline.DeviceCompressor("cpu", block_size=B).compress_zstd(data, 3)
+    assert ZF.decompress(fr) == data
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m.startswith(("zpack_tpu.kernels", "zpack_tpu.parallel.pipeline",
                                  "zpack_tpu.parallel.extract")))

@@ -1,6 +1,6 @@
 """zstd codec (method 1), host only.
 
-The port has no zstd kernels yet.  ``ZstdCodec.decompress`` takes its JAX
+The port has no zstd decode kernels yet.  ``ZstdCodec.decompress`` takes its JAX
 device branch whenever ``ZPACK_TPU_ENGINE=tpu``, which the port's engine
 sets for the LZ4 path, so the engine registers this subclass: the same
 codec with that branch left out.

@@ -126,6 +126,10 @@ def lib() -> ctypes.CDLL:
             cdll.zp_xxh3_batch.argtypes = [p, i64, p, i, p, p, p, p]
             cdll.zp_xxh3_stream.restype = i
             cdll.zp_xxh3_stream.argtypes = [p, i64, p, p, p, p, p]
+            cdll.zp_huffman_encode.restype = i
+            cdll.zp_huffman_encode.argtypes = [p, p, p, p, i, p, p, p]
+            cdll.zp_fse_encode.restype = i
+            cdll.zp_fse_encode.argtypes = [p, p, p, p, p, i, p, p, p]
             cdll.zp_error_string.restype = ctypes.c_char_p
             cdll.zp_error_string.argtypes = [i]
             _LIB = cdll

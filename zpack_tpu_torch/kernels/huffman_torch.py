@@ -1,0 +1,217 @@
+"""zstd Huffman literal-stream encode for PyTorch.
+
+Counterpart of the encode half of ``zpack_tpu/kernels/huffman_jax.py``
+(``_encode_one_stream`` / ``encode_streams`` and ``DeviceHuffmanEncoder``).
+The kernel has two halves:
+
+* a plain PyTorch version (``encode_streams_plain``) that states the
+  contract and runs on any device;
+* a wrapper (``encode_streams``) that takes the plain version for a tensor
+  on the CPU and launches the hand-written CUDA kernel
+  (``csrc/huffman_encode.cu``) for a tensor on a GPU.  It never falls back:
+  a build or launch error raises.
+
+The contract is ``codecs/zstd/huffman.py:_encode_stream``'s.  A batch is
+one flat uint8 symbol buffer with ``(start, n)`` rows, one ``(256,)`` table
+per stream packed as ``code | len << 16``, and the first word of each
+stream's output in one flat u32 plane (``word_off``).  In stream ``s``,
+symbol ``i`` occupies bits ``[total_bits - incl_cumsum(len)[i], +len[i])``
+of its little-endian plane, so symbol 0 sits highest, and the sentinel bit
+sits at ``total_bits``.  The planes are returned in an int32 tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zpack_tpu.errors import CompressError
+
+from . import _build
+
+#: zstd huffman code-length limit (RFC 8878 §4.2.1)
+MAX_BITS = 11
+_M32 = 0xFFFFFFFF
+
+#: launches of the hand-written kernel, counted by its wrapper only
+LAUNCHES = {"huffman_encode": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def scatter_bits(n_words: int, pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """OR bit fields into a little-endian u32 plane of ``n_words`` words:
+    field ``i``, a value under 2^32 already cut to its width, starts at
+    absolute bit ``pos[i]``.  The fields must not share a bit, so a
+    scatter-add is an OR.  Returns the plane as int32 (u32 bits)."""
+    v = vals.to(torch.int64) << (pos & 31)
+    w = pos >> 5
+    plane = torch.zeros(n_words + 1, dtype=torch.int64, device=pos.device)
+    plane.scatter_add_(0, w, v & _M32)
+    plane.scatter_add_(0, w + 1, v >> 32)  # the spill; index n_words is dropped
+    plane = plane[:n_words]
+    return torch.where(plane > 0x7FFFFFFF, plane - (1 << 32), plane).to(torch.int32)
+
+
+def pack_tables(tables) -> np.ndarray:
+    """``(S, 256)`` int32 ``code | len << 16`` rows from
+    ``codecs.zstd.huffman.HuffEncodeTable``s (symbols past a table's end
+    have length 0)."""
+    out = np.zeros((len(tables), 256), dtype=np.int64)
+    for i, t in enumerate(tables):
+        lens = np.asarray(t.lengths, dtype=np.int64)
+        if (lens > MAX_BITS).any():
+            raise CompressError(f"huffman code length above {MAX_BITS}")
+        codes = np.asarray(t.codes, dtype=np.int64) & 0xFFFF
+        out[i, : len(codes)] = codes
+        out[i, : len(lens)] |= lens << 16
+    return out.astype(np.int32)
+
+
+def _check(syms, rows, tables, word_off) -> None:
+    S = rows.shape[0]
+    if syms.dtype != torch.uint8 or syms.dim() != 1:
+        raise ValueError("syms must be a flat uint8 tensor")
+    if rows.dtype != torch.int64 or rows.shape != (S, 2):
+        raise ValueError("rows must be (S, 2) int64 (start, n)")
+    if tables.dtype != torch.int32 or tables.shape != (S, 256):
+        raise ValueError("tables must be (S, 256) int32 code | len << 16")
+    if word_off.dtype != torch.int64 or word_off.shape != (S + 1,):
+        raise ValueError("word_off must be (S + 1,) int64")
+
+
+def encode_streams_plain(syms, rows, tables, word_off, *, n_words: int):
+    """Batched Huffman stream encode in plain PyTorch.
+
+    syms: flat uint8; rows: (S, 2) int64 ``(start, n)``; tables: (S, 256)
+    int32 ``code | len << 16``; word_off: (S + 1,) int64, stream ``s``
+    owning words ``[word_off[s], word_off[s + 1])`` of the plane.  Returns
+    ``(words (n_words,) int32, total_bits (S,) int32)``; words no stream
+    reaches stay zero."""
+    _check(syms, rows, tables, word_off)
+    dev = syms.device
+    S = rows.shape[0]
+    n = rows[:, 1]
+    sid = torch.repeat_interleave(torch.arange(S, device=dev), n)
+    local = torch.arange(sid.numel(), device=dev) - (torch.cumsum(n, 0) - n)[sid]
+    entry = tables.to(torch.int64)[sid, syms[rows[sid, 0] + local].to(torch.int64)]
+    lens = entry >> 16
+    codes = entry & ((1 << lens) - 1)
+    total = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, sid, lens)
+    incl = torch.cumsum(lens, 0) - (torch.cumsum(total, 0) - total)[sid]
+    base = word_off[:-1] * 32
+    pos = torch.cat([base[sid] + total[sid] - incl, base + total])
+    vals = torch.cat([codes, torch.ones_like(total)])  # codes, then sentinels
+    return scatter_bits(n_words, pos, vals), total.to(torch.int32)
+
+
+def encode_streams(syms, rows, tables, word_off, *, n_words: int):
+    """:func:`encode_streams_plain` on the CPU; on a GPU, the CUDA encoder
+    (``csrc/huffman_encode.cu``).  Same inputs, same outputs."""
+    if syms.device.type == "cpu":
+        return encode_streams_plain(syms, rows, tables, word_off, n_words=n_words)
+    if syms.device.type != "cuda":
+        raise ValueError("encode_streams takes CPU or CUDA tensors")
+    _check(syms, rows, tables, word_off)
+    for name, t in (("syms", syms), ("rows", rows), ("tables", tables), ("word_off", word_off)):
+        if t.device != syms.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {syms.device}")
+    S = rows.shape[0]
+    words = torch.zeros(n_words, dtype=torch.int32, device=syms.device)
+    total = torch.empty(S, dtype=torch.int32, device=syms.device)
+    if S == 0:
+        return words, total
+    lib = _build.lib()
+    with torch.cuda.device(syms.device):
+        rc = lib.zp_huffman_encode(
+            syms.data_ptr(), rows.data_ptr(), tables.data_ptr(), word_off.data_ptr(), S,
+            words.data_ptr(), total.data_ptr(),
+            torch.cuda.current_stream(syms.device).cuda_stream)
+    _build.check(rc, "huffman_encode")
+    LAUNCHES["huffman_encode"] += 1
+    return words, total
+
+
+def build_batch(streams: list[np.ndarray], tables) -> dict:
+    """The flat batch of :func:`encode_streams` as numpy arrays (``syms``,
+    ``rows``, ``tables``, ``word_off``), plus ``n_words`` and each stream's
+    ``total_bits``, counted here from its histogram; each stream owns the
+    words of its payload and sentinel.  Raises CompressError, as
+    ``huffman._encode_stream`` does, when a stream holds a symbol its table
+    has no code for."""
+    streams = [np.asarray(s, dtype=np.uint8) for s in streams]
+    tabs = pack_tables(tables)
+    lens = (tabs >> 16).astype(np.int64)
+    total = np.zeros(len(streams), dtype=np.int64)
+    for i, s in enumerate(streams):
+        hist = np.bincount(s, minlength=256)
+        if (hist[lens[i] == 0] > 0).any():
+            raise CompressError("huffman table misses a packed symbol")
+        total[i] = hist @ lens[i]
+    counts = np.array([len(s) for s in streams], dtype=np.int64)
+    word_off = np.concatenate([[0], np.cumsum((total + 1 + 31) // 32)]).astype(np.int64)
+    return {"syms": np.concatenate(streams),
+            "rows": np.stack([np.cumsum(counts) - counts, counts], axis=1),
+            "tables": tabs, "word_off": word_off, "n_words": int(word_off[-1]),
+            "total_bits": total}
+
+
+#: the tensor arguments of :func:`encode_streams`, in order
+BATCH_ARGS = ("syms", "rows", "tables", "word_off")
+
+
+class TorchHuffmanEncoder:
+    """Host wrapper: pack literal streams into one flat batch, encode it on
+    ``device`` in one launch, cut the payloads (each identical to
+    ``huffman._encode_stream``).  The device analog of
+    ``huffman_jax.DeviceHuffmanEncoder``; ``encode_literal_sections``
+    takes either."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def encode_batch(self, streams: list[np.ndarray], tables) -> list[bytes]:
+        """streams[i]: uint8 symbol array; tables[i]: HuffEncodeTable for
+        stream i.  Returns the encoded byte payload of each stream."""
+        if not streams:
+            return []
+        batch = build_batch(streams, tables)
+        words, total = encode_streams(
+            *(torch.from_numpy(batch[k]).to(self.device) for k in BATCH_ARGS),
+            n_words=batch["n_words"])
+        total_bits = batch["total_bits"]
+        if not np.array_equal(total.cpu().numpy(), total_bits):
+            raise RuntimeError("huffman_encode: total_bits disagree with the host's count")
+        plane = words.cpu().numpy().tobytes()
+        off = batch["word_off"]
+        return [plane[4 * int(off[i]): 4 * int(off[i]) + (int(total_bits[i]) + 8) // 8]
+                for i in range(len(streams))]
+
+    def encode_4stream_batch(self, lit_blocks: list[np.ndarray], tables) -> list[bytes | None]:
+        """Device analog of ``huffman.encode_4stream`` for a batch of blocks:
+        each block's literals split into 4 sub-streams, all encoded in one
+        launch; jump table and concatenation on the host.  ``None`` where a
+        part is empty or one of the first three exceeds 0xFFFF bytes."""
+        streams, owner, plan = [], [], []
+        for bi, arr in enumerate(lit_blocks):
+            n = len(arr)
+            per = (n + 3) // 4
+            parts = [arr[:per], arr[per:2 * per], arr[2 * per:3 * per], arr[3 * per:]]
+            if any(len(p) == 0 for p in parts):
+                plan.append(None)
+                continue
+            plan.append(len(streams))
+            streams += parts
+            owner += [bi] * 4
+        encoded = self.encode_batch(streams, [tables[o] for o in owner])
+        out: list[bytes | None] = []
+        for base in plan:
+            es = None if base is None else encoded[base:base + 4]
+            if es is None or any(len(e) > 0xFFFF for e in es[:3]):
+                out.append(None)
+                continue
+            out.append(b"".join(len(e).to_bytes(2, "little") for e in es[:3]) + b"".join(es))
+        return out

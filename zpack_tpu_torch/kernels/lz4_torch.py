@@ -147,6 +147,85 @@ def unpack_resort_host(src16: np.ndarray, code: np.ndarray):
     return src, mlen
 
 
+def parse_events_host(src: np.ndarray, mlen: np.ndarray, n: int):
+    """Greedy parse via numpy pointer-doubling over the device jump table.
+    Returns sorted match positions (the parse orbit's match events).  Copy
+    of ``lz4_jax.parse_events_host``."""
+    B = len(mlen)
+    step = np.where(mlen >= MIN_MATCH, mlen, 1).astype(np.int64)
+    jump = np.minimum(np.arange(B, dtype=np.int64) + step, B)
+    jump = np.concatenate([jump, [B]])
+    orbit = np.array([0], dtype=np.int64)
+    while len(orbit) <= B:
+        orbit = np.concatenate([orbit, jump[orbit]])
+        jump = jump[jump]
+    orbit = orbit[: B + 1]
+    events = orbit[orbit < n]
+    events = np.unique(events)  # orbit is sorted+padded; dedupe the fixpoint
+    return events[mlen[events] >= MIN_MATCH]
+
+
+def _extend_capped(arr: np.ndarray, limit: int, p: np.ndarray, j: np.ndarray,
+                   ml: np.ndarray) -> np.ndarray:
+    """Exact-extend capped match lengths, vectorized: strip-doubling compares
+    of (n_active, s) byte blocks; rows retire at their first mismatch or at
+    ``limit``.  Total work is O(sum of extensions).  Copy of
+    ``lz4_jax._extend_capped``."""
+    pe = (p + ml).astype(np.int64)
+    je = (j + ml).astype(np.int64)
+    base = np.int64(len(arr) - 1)
+    active = pe < limit
+    s = 16
+    while active.any():
+        a = np.nonzero(active)[0]
+        off = np.arange(s, dtype=np.int64)
+        pa = pe[a, None] + off
+        ja = je[a, None] + off
+        eq = (arr[np.minimum(pa, base)] == arr[np.minimum(ja, base)]) & (pa < limit)
+        allm = eq.all(axis=1)
+        adv = np.where(allm, s, eq.argmin(axis=1))
+        pe[a] += adv
+        je[a] += adv
+        active[a] = allm & (pe[a] < limit)
+        if s < 4096:
+            s *= 2
+    return pe - p
+
+
+def resolve_matches_host(arr: np.ndarray, src: np.ndarray, mlen: np.ndarray,
+                         n: int, limit: int, capj: int = CAPJ):
+    """Greedy-parse the device match tables into final non-overlapping
+    sequences with exact lengths, fully vectorized.  Copy of
+    ``lz4_jax.resolve_matches_host``.
+
+    Capped lengths (>= ``capj``) are made exact before the parse with the
+    same-delta-run identity: within a maximal run of consecutive capped
+    positions sharing delta = p - src, L(p) = L(run_end) + (run_end - p), so
+    the byte compares run only at run ends.  Returns (positions, sources,
+    lengths) int64 arrays, sorted by position."""
+    src64 = src.astype(np.int64)
+    mlen = mlen.astype(np.int64)
+    capped = mlen >= capj
+    if capped.any():
+        B = len(mlen)
+        pos = np.arange(B, dtype=np.int64)
+        delta = np.where(mlen >= MIN_MATCH, pos - src64, np.int64(-1))
+        nxt_delta = np.concatenate([delta[1:], np.array([-2], np.int64)])
+        nxt_capped = np.concatenate([capped[1:], [False]])
+        run_end = capped & ((delta != nxt_delta) | ~nxt_capped)
+        ends = np.nonzero(run_end)[0]
+        l_end = _extend_capped(arr, limit, ends, src64[ends], mlen[ends])
+        # nearest run end at/after p: runs are contiguous, so a reverse
+        # min-scan of end positions resolves every capped p to its own end
+        end_of = np.minimum.accumulate(np.where(run_end, pos, B)[::-1])[::-1]
+        l_at_end = np.zeros(B, np.int64)
+        l_at_end[ends] = l_end
+        exact_l = l_at_end[np.minimum(end_of, B - 1)] + (end_of - pos)
+        mlen = np.where(capped, exact_l, mlen)
+    match_ev = parse_events_host(src64, mlen, n)
+    return match_ev, src64[match_ev], mlen[match_ev]
+
+
 def from_jax_wire(mode: str, arrays):
     """The JAX tokenizers' device wire formats -> position-ordered
     ``(src int32, -1 = none; mlen int32)`` numpy tables.

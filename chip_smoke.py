@@ -28,8 +28,19 @@
    frame must equal the host-entropy frame, decode natively, and both
    kernels must have been launched by that run (a 1 MiB cut must also
    decode with the python oracle);
-7. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
-8. prints one JSON line of per-kernel results, then, last,
+7. zstd extract: the Writer with the port's engine writes the 64 MiB corpus
+   as one zstd level-3 entry (16 frames); a first ``decompress_zstd_device``
+   run over its bytes records the inputs of every kernel it launches; the
+   Huffman decode, FSE decode and repeat-offset kernels, and the replay on
+   the zstd frame rows, are held against their plain versions on them
+   (exact); then ``Reader.read_file`` of the entry runs twice with the
+   launch counters and the codec's fallback counts at zero: the corpus must
+   come back (XXH3 verified), all four kernels must have been launched and
+   no fallback taken; ``native.zstd_decompress`` of the entry is timed for
+   scale; the fallback ``decompress_zstd_batched`` must decode the first
+   frame, and a frame with one corrupted byte must raise DecompressError;
+8. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
+9. prints one JSON line of per-kernel results, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no GPU is visible or any
@@ -38,6 +49,7 @@ phase fails.  It never imports jax.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -452,7 +464,8 @@ def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceComp
     t0 = time.perf_counter()
     frame = dc.compress_zstd(cut, 3)
     t_dev = time.perf_counter() - t0
-    launches = {**huffman_torch.LAUNCHES, **fse_torch.LAUNCHES}
+    launches = {"huffman_encode": huffman_torch.LAUNCHES["huffman_encode"],
+                "fse_encode": fse_torch.LAUNCHES["fse_encode"]}
     phases = metrics.snapshot()
     print(f"zstd main path launches: {json.dumps(launches)}")
     for k, n in launches.items():
@@ -484,6 +497,178 @@ def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceComp
           f"native.zstd_compress level 3 {mb / t_nat:.2f} MB/s ({t_nat:.3f} s), "
           f"ratio {len(cut) / len(nat):.4f}")
     return launches
+
+
+ZSTD_ENTRY = "bench.zst"
+#: the kernels of the zstd extract path (launch counter names) and their
+#: wrappers; each plain version is the wrapper's name + "_plain"
+EXTRACT_KERNELS = {"huffman_decode": "decode_streams", "fse_decode": "decode_seq_streams",
+                   "rep_totals": "rep_totals", "rep_apply": "rep_apply",
+                   "lz4_replay": "replay"}
+
+
+def write_zstd_entry(corpus: bytes, device, extract) -> tuple:
+    """The corpus as one zstd level-3 entry, written by the Writer with the
+    port's engine installed; returns the archive and the entry's bytes."""
+    from zpack_tpu.constants import CompressionMethod
+    from zpack_tpu.reader import Reader
+    from zpack_tpu.writer import CompressOptions, Writer
+    from zpack_tpu_torch import engine
+
+    engine.install(device)
+    try:
+        t0 = time.perf_counter()
+        w = Writer.to_heap()
+        w.write_archive([(ZSTD_ENTRY, corpus, CompressOptions(CompressionMethod.ZSTD, 3))])
+        t_write = time.perf_counter() - t0
+    finally:
+        engine.uninstall()
+    buf = w.buffer
+    e = Reader.from_memory(buf, shared=True).get_file_entry(ZSTD_ENTRY)
+    comp = bytes(buf[e.offset:e.offset + e.comp_size])
+    walk = extract.walk_zstd(comp)
+    nseq = [it[4] for it in walk.seq_items]
+    print(f"zstd entry: {len(comp)} bytes (ratio {len(corpus) / len(comp):.4f}, written in "
+          f"{t_write:.3f} s): {len(walk.frames)} frames, "
+          f"{sum(len(b) for _, b, _ in walk.frames)} blocks, {sum(nseq)} sequences in "
+          f"{len(nseq)} blocks (longest {max(nseq, default=0)}), {len(walk.streams)} Huffman "
+          f"streams of {sum(walk.n_syms)} literals (longest {max(walk.n_syms, default=0)})")
+    if len(walk.frames) < 2 or not walk.streams or not nseq:
+        raise AssertionError("the zstd entry holds no Huffman literals, sequences or frames")
+    return buf, comp
+
+
+@contextlib.contextmanager
+def recording_kernels(modules: dict):
+    """Wrap each kernel wrapper of the zstd extract path so that its
+    arguments are kept: ``calls[name]`` lists ``(args, kwargs)``."""
+    calls: dict = {}
+    saved = []
+    for name, attr in EXTRACT_KERNELS.items():
+        mod = modules[name]
+        fn = getattr(mod, attr)
+
+        def rec(*args, _fn=fn, _name=name, **kwargs):
+            calls.setdefault(_name, []).append((args, kwargs))
+            return _fn(*args, **kwargs)
+
+        setattr(mod, attr, rec)
+        saved.append((mod, attr, fn))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modules) -> dict:
+    """Record each kernel's inputs on a first run of the device path, then
+    hold each kernel against its plain version on them and time both (the
+    replay, which takes some 100 ms, 3 times; the others 10)."""
+    with recording_kernels(modules) as calls:
+        t0 = time.perf_counter()
+        out = extract.decompress_zstd_device(comp, len(corpus), device=device)
+        print(f"zstd extract first run (records the kernels' inputs): "
+              f"{time.perf_counter() - t0:.3f} s")
+    if out != corpus:
+        raise AssertionError("zstd extract: the first device run does not give the corpus back")
+    res = {}
+    for name, attr in EXTRACT_KERNELS.items():
+        kernel, plain = getattr(modules[name], attr), getattr(modules[name], attr + "_plain")
+        if len(calls.get(name, ())) != 1:
+            raise AssertionError(f"zstd extract: {name} was called {len(calls.get(name, ()))} "
+                                 "times, not once")
+        args, kwargs = calls[name][0]
+        got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        got, want = ([got], [want]) if isinstance(got, torch.Tensor) else (got, want)
+        err = max_abs_err(got, want)
+        print(f"{name} on the zstd extract inputs: {'equal' if err == 0 else 'DIFFERENT'} "
+              f"to plain (max_abs_err {err})")
+        if err:
+            raise AssertionError(f"{name} kernel != plain on the zstd extract inputs")
+        ms = cuda_ms(lambda: kernel(*args, **kwargs), 3 if name == "lz4_replay" else 10)
+        plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 1, warmup=False)
+        print(f"{name} (zstd extract): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return res
+
+
+def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device, modules) -> dict:
+    """``Reader.read_file`` of the zstd entry, twice, with every launch
+    counter and the codec's fallback counts at zero."""
+    from zpack_tpu import native
+    from zpack_tpu.reader import Reader
+    from zpack_tpu.utils.observe import metrics
+    from zpack_tpu_torch import engine
+    from zpack_tpu_torch.codecs import zstd as port_zstd
+
+    engine.install(device)
+    try:
+        for name in EXTRACT_KERNELS:
+            modules[name].reset_launches()
+        port_zstd.reset_fallbacks()
+        metrics.reset()
+        mb = len(corpus) / 1e6
+        for rep in (1, 2):
+            t0 = time.perf_counter()
+            out = Reader.from_memory(buf, shared=True).read_file(ZSTD_ENTRY)  # verifies XXH3
+            t = time.perf_counter() - t0
+            if out != corpus:
+                raise AssertionError("zstd extract main path: bytes differ")
+            print(f"zstd extract main path rep {rep}: {mb / t:.2f} MB/s ({t:.3f} s)")
+        launches = {name: modules[name].LAUNCHES[name] for name in EXTRACT_KERNELS}
+        fallbacks = dict(port_zstd.FALLBACKS)
+        print("zstd extract main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
+    finally:
+        engine.uninstall()
+    print(f"zstd extract main path launches: {json.dumps(launches)}, "
+          f"fallbacks: {json.dumps(fallbacks)}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"zstd extract main path never launched {k}")
+    if any(fallbacks.values()):
+        raise AssertionError(f"zstd extract main path fell back: {fallbacks}")
+    t0 = time.perf_counter()
+    nat = native.zstd_decompress(comp, len(corpus))
+    t_nat = time.perf_counter() - t0
+    if nat != corpus:
+        raise AssertionError("native.zstd_decompress does not give the corpus back")
+    print(f"zstd extract: bytes equal, XXH3 verified; for scale: native.zstd_decompress "
+          f"{len(corpus) / 1e6 / t_nat:.2f} MB/s ({t_nat:.3f} s)")
+    return launches
+
+
+def phase_zstd_fallback(comp: bytes, corpus: bytes, device, extract) -> None:
+    """The fallback decodes the first frame; a corrupted byte raises."""
+    from zpack_tpu.codecs.zstd import frame as zframe
+    from zpack_tpu.errors import DecompressError
+    from zpack_tpu.parallel.host import _scan_zstd_frames
+
+    start, end, size = _scan_zstd_frames(comp)[0]
+    t0 = time.perf_counter()
+    out = extract.decompress_zstd_batched(comp[start:end], size, device=device)
+    t = time.perf_counter() - t0
+    if out != corpus[:size]:
+        raise AssertionError("decompress_zstd_batched does not give the first frame back")
+    # zero the last byte of the first block with sequences: its sequence
+    # bitstream's sentinel
+    pos = start + 4 + zframe.parse_frame_header(comp, start + 4).header_size
+    walk = extract.walk_zstd(comp[start:end])
+    for b in walk.frames[0][1]:
+        bsize = (comp[pos] | comp[pos + 1] << 8 | comp[pos + 2] << 16) >> 3
+        pos += 3 + (1 if b.btype == zframe.BLOCK_RLE else bsize)
+        if b.slot is not None:
+            break
+    bad = bytearray(comp)
+    bad[pos - 1] = 0
+    try:
+        extract.decompress_zstd_device(bytes(bad), len(corpus), device=device)
+    except DecompressError as e:
+        print(f"zstd fallback: decompress_zstd_batched gives the first frame back ({size} bytes "
+              f"in {t:.3f} s); a zeroed byte at {pos - 1} raises DecompressError ({e})")
+        return
+    raise AssertionError("a corrupted zstd frame did not raise DecompressError")
 
 
 def phase_cli(corpus: bytes) -> None:
@@ -567,6 +752,12 @@ def main() -> int:
     fs = phase_fse(rec["fse"], device, fse_torch)
     z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor,
                             huffman_torch, fse_torch)
+    modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch,
+               "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch}
+    zbuf, zcomp = write_zstd_entry(corpus, device, extract)
+    zk = phase_zstd_extract_kernels(zcomp, corpus, device, extract, modules)
+    zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device, modules)
+    phase_zstd_fallback(zcomp, corpus, device, extract)
     phase_cli(corpus)
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -581,7 +772,10 @@ def main() -> int:
          "launches": launches["lz4_tokenize"], **tok},
         {"name": "lz4_replay", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_replay.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:491",
-         "launches": launches["lz4_replay"], **rep},
+         "launches": launches["lz4_replay"], **rep,
+         "max_abs_err": max(rep["max_abs_err"], zk["lz4_replay"]["max_abs_err"]),
+         "zstd_rows_launches": zx_launches["lz4_replay"],
+         "zstd_rows_ms": zk["lz4_replay"]["ms"], "zstd_rows_plain_ms": zk["lz4_replay"]["plain_ms"]},
         {"name": "xxh3_batch", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_batch.cu",
          "replaces": "zpack_tpu/kernels/xxh3_pallas.py:77",
          "launches": x_launches["xxh3_batch"], **xb},
@@ -595,6 +789,19 @@ def main() -> int:
         {"name": "fse_encode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_encode.cu",
          "replaces": "zpack_tpu/kernels/fse_jax.py:83",
          "launches": z_launches["fse_encode"], **fs},
+        {"name": "huffman_decode", "route": "cuda",
+         "source": "zpack_tpu_torch/csrc/huffman_decode.cu",
+         "replaces": "zpack_tpu/kernels/huffman_jax.py:385",
+         "launches": zx_launches["huffman_decode"], **zk["huffman_decode"]},
+        {"name": "fse_decode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_decode.cu",
+         "replaces": "zpack_tpu/kernels/fse_jax.py:378",
+         "launches": zx_launches["fse_decode"], **zk["fse_decode"]},
+        {"name": "rep_resolve", "route": "cuda", "source": "zpack_tpu_torch/csrc/rep_resolve.cu",
+         "replaces": "zpack_tpu/kernels/fse_jax.py:484",
+         "launches": zx_launches["rep_totals"] + zx_launches["rep_apply"],
+         "max_abs_err": max(zk["rep_totals"]["max_abs_err"], zk["rep_apply"]["max_abs_err"]),
+         "ms": zk["rep_totals"]["ms"] + zk["rep_apply"]["ms"],
+         "plain_ms": zk["rep_totals"]["plain_ms"] + zk["rep_apply"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,11 @@ from zpack_tpu.codecs.zstd import encode as zenc, huffman as zhuf, seq as zseq
 from zpack_tpu.constants import CompressionMethod
 from zpack_tpu.reader import Reader
 from zpack_tpu.writer import CompressOptions, Writer
+from zpack_tpu.codecs.zstd import fse as zfse
 from zpack_tpu_torch import engine
+from zpack_tpu_torch.codecs import zstd as port_zstd
 from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch, xxh3_torch
+from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
 torch.set_num_threads(1)
@@ -228,3 +231,126 @@ def test_compress_zstd_on_cuda_launches_both_kernels(cuda):
     assert huffman_torch.LAUNCHES["huffman_encode"] > 0 and fse_torch.LAUNCHES["fse_encode"] > 0
     assert got == dc.compress_zstd(data, 3, device_entropy=False)
     assert native.zstd_decompress(got, len(data)) == data
+
+
+def _huff_decode_table(et):
+    """The decode table of a host encode table (its weights plus the
+    implied last one)."""
+    total = sum((1 << (w - 1)) for w in et.weights if w > 0)
+    return zhuf.build_decode_table(et.weights + [((1 << total.bit_length()) - total).bit_length()])
+
+
+def test_huffman_decode_kernel_matches_plain(cuda):
+    streams, tables = _huff_streams()
+    payloads = [zhuf._encode_stream(s, t) for s, t in zip(streams, tables)]
+    dts = [_huff_decode_table(t) for t in tables]
+    n = [len(s) for s in streams]
+    n[2] += 30  # over-reads: final != 0 on both
+    size = np.array(n[::-1]) + 5  # placed in reverse order, 5 bytes apart
+    dst = (np.cumsum(size) - size)[::-1].tolist()
+    batch = huffman_torch.build_decode_batch(payloads, dts, n, dst)
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in huffman_torch.DECODE_ARGS]
+    n_out = int(size.sum())
+    got = huffman_torch.decode_streams(*args, n_out=n_out)
+    want = huffman_torch.decode_streams_plain(*args, n_out=n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1][2] != 0 and int((got[1] != 0).sum()) == 1
+    dec = huffman_torch.TorchHuffmanDecoder(cuda)
+    out = dec.decode_batch(payloads, dts, [len(s) for s in streams])
+    assert all(np.array_equal(o, s) for o, s in zip(out, streams))
+
+
+def _zstd_items():
+    """The sequence items of the repo's native zstd frames of text,
+    records and noise: custom, predefined, RLE and repeat tables."""
+    rng = np.random.default_rng(40)
+    rec = np.zeros((9000, 32), np.uint8)
+    rec[:, 0] = 0x7F
+    rec[:, 1] = np.arange(9000) % 17
+    rec[:, 6:14] = rng.integers(0, 4, (9000, 8))
+    data = (_text(300000, 41) + rec.tobytes()
+            + rng.integers(0, 256, 50000, dtype=np.uint8).tobytes() + b"ab" * 20000)
+    return extract.walk_zstd(native.zstd_compress(data, 3)).seq_items
+
+
+def test_fse_decode_kernel_matches_plain(cuda):
+    items = _zstd_items()
+    bs, ll, of, ml, nb = items[0]
+    items = items + [(bs[len(bs) // 2:], ll, of, ml, nb), (b"\x5a" + bs, ll, of, ml, nb),
+                     (bs, ll, zfse.build_rle_table(31), ml, nb)]
+    batch = fse_torch.build_decode_batch(items)
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in fse_torch.DECODE_ARGS]
+    got = fse_torch.decode_seq_streams(*args)
+    want = fse_torch.decode_seq_streams_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    pos_f, err = got[3].cpu(), got[4].cpu()
+    assert (pos_f[:-3] == 0).all() and pos_f[-3] < 0 and pos_f[-2] > 0
+    assert err.tolist() == [False] * (len(items) - 1) + [True]
+
+
+def test_rep_kernels_match_plain(cuda):
+    rng = np.random.default_rng(42)
+    nsq = rng.integers(0, 3000, 40)
+    nsq[0], nsq[5] = 100, 0
+    total = int(nsq.sum())
+    ovs = np.where(rng.random(total) < 0.55, rng.integers(1, 4, total),
+                   rng.integers(4, 70000, total)).astype(np.int32)
+    lls = np.where(rng.random(total) < 0.3, 0, rng.integers(1, 50, total)).astype(np.int32)
+    mls = rng.integers(3, 300, total).astype(np.int32)
+    ovs[0], lls[0] = 3, 0  # r0 - 1: underflows from the entry state (1, 4, 8)
+    seq_off = torch.from_numpy(np.concatenate([[0], np.cumsum(nsq)]).astype(np.int64)).to(cuda)
+    ov, ll, ml = (torch.from_numpy(a).to(cuda) for a in (ovs, lls, mls))
+    got = fse_torch.rep_totals(ov, ll, ml, seq_off)
+    want = fse_torch.rep_totals_plain(ov, ll, ml, seq_off)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for base in (100000, 0):  # without and with an underflow
+        entry = torch.tensor([[1 + base, 4 + base, 8 + base]] * 40, dtype=torch.int32, device=cuda)
+        got = fse_torch.rep_apply(ov, ll, seq_off, entry)
+        want = fse_torch.rep_apply_plain(ov, ll, seq_off, entry)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(got[1].any()) == (base == 0)
+
+
+def test_replay_kernel_matches_plain_on_long_rows(cuda):
+    """Rows of 100 to 300 KiB, past the kernel's shared-memory size."""
+    raws = [_text(300000, 43), (b"0123456789abcdef" * 8000)[:100001],
+            b"z" * 70000 + _text(90000, 44)]
+    batch = lz4_torch.build_batch([lz4block.compress_block(r) for r in raws],
+                                  [len(r) for r in raws])
+    assert batch["n_out"] > 65536
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in lz4_torch.REPLAY_ARGS]
+    got = lz4_torch.replay(*args, n_out=batch["n_out"])
+    want = lz4_torch.replay_plain(*args, n_out=batch["n_out"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    out = got.cpu().numpy()
+    assert [out[i, : len(r)].tobytes() for i, r in enumerate(raws)] == raws
+
+
+def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda, monkeypatch):
+    monkeypatch.delenv("ZPACK_TPU_ENGINE", raising=False)
+    rng = np.random.default_rng(45)
+    data = _text(3 << 20, 46) + rng.integers(0, 256, 300000, dtype=np.uint8).tobytes()
+    engine.install(cuda)
+    try:
+        w = Writer.to_heap()
+        w.write_archive([("z.bin", data, CompressOptions(CompressionMethod.ZSTD, 3))])
+        huffman_torch.reset_launches()
+        fse_torch.reset_launches()
+        lz4_torch.reset_launches()
+        port_zstd.reset_fallbacks()
+        r = Reader.from_memory(w.buffer, shared=True)
+        assert r.read_file("z.bin") == data
+    finally:
+        engine.uninstall()
+    launches = {**huffman_torch.LAUNCHES, **fse_torch.LAUNCHES, **lz4_torch.LAUNCHES}
+    for k in ("huffman_decode", "fse_decode", "rep_totals", "rep_apply", "lz4_replay"):
+        assert launches[k] > 0, k
+    assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
+    e = r.get_file_entry("z.bin")
+    comp = bytes(w.buffer[e.offset:e.offset + e.comp_size])
+    assert extract.decompress_zstd_batched(comp, len(data), device=cuda) == data

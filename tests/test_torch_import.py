@@ -1,7 +1,8 @@
 """The port never imports jax: with ``sys.modules["jax"] = None`` any jax
-import raises, a Writer/Reader round trip through the port still works, and
-the XXH3 entry points hash and the zstd compress path encodes on the
-CPU."""
+import raises, a Writer/Reader round trip of an LZ4 and a zstd entry
+through the port still works (the zstd entry on the port's device decode,
+with no fallback), and the XXH3 entry points hash and the zstd compress
+path encodes on the CPU."""
 
 import os
 import subprocess
@@ -33,8 +34,12 @@ rng = np.random.default_rng(0)
 data = (b"import-free round trip " * 6000)[:150000] + rng.integers(0, 256, 50000, dtype=np.uint8).tobytes()
 engine.install("cpu")
 w = Writer.to_heap()
-w.write_archive([("d.bin", data, CompressOptions(CompressionMethod.LZ4, 1))])
-assert Reader.from_memory(w.buffer, shared=True).read_file("d.bin") == data
+w.write_archive([("d.bin", data, CompressOptions(CompressionMethod.LZ4, 1)),
+                 ("z.bin", data, CompressOptions(CompressionMethod.ZSTD, 3))])
+from zpack_tpu_torch.codecs import zstd as port_zstd
+r = Reader.from_memory(w.buffer, shared=True)
+assert r.read_file("d.bin") == data and r.read_file("z.bin") == data
+assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
 engine.uninstall()
 streams = [data[:n] for n in (0, 240, 241, 5000, 70000)]
 assert xxh3_torch.xxh3_64_batch(streams, "cpu") == [H.xxh3_64(s) for s in streams]

@@ -5,8 +5,10 @@ The commands, options and archive format are those of ``zpack_tpu.cli``;
 this wrapper takes ``--device`` off the arguments (default ``cuda``),
 installs the port's engine on that device and hands the rest to
 ``zpack_tpu.cli.main.main``.  ``c`` and ``a`` compress LZ4 entries on the
-device; ``x`` and ``t`` stream through the host decoder by design, as they
-do in the JAX package.  ``--device cuda`` without a GPU exits with an error
+device.  ``x`` and ``t`` stream LZ4 and zstd entries through the host
+decoders by design, as they do in the JAX package; the device route for
+reading an entry is ``Reader.read_file``, which replays LZ4 and decodes
+zstd on the device.  ``--device cuda`` without a GPU exits with an error
 and never carries on on the CPU.
 """
 

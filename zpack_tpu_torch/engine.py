@@ -2,11 +2,12 @@
 
 Counterpart of the JAX package's engine switch (``ZPACK_TPU_ENGINE=tpu``,
 ``codecs/__init__.py``).  :func:`install` makes the ``Writer``, ``Reader``
-and CLI of ``zpack_tpu`` run LZ4 on ``device``:
+and CLI of ``zpack_tpu`` run LZ4 and zstd extract on ``device``:
 
 * method 2 becomes :class:`TorchLZ4Codec` on ``device``;
-* method 1 becomes :class:`HostZstdCodec`, so zstd never takes the JAX
-  device branch;
+* method 1 becomes :class:`TorchZstdCodec` on ``device``: its decompress
+  (what ``Reader.read_file`` calls) decodes on the device, so zstd never
+  takes the JAX device branch; it compresses with the native host encoder;
 * ``ZPACK_TPU_ENGINE=tpu`` makes the writer and the CLI hand whole entries
   to the codec instead of their native shortcuts.
 
@@ -24,7 +25,7 @@ from zpack_tpu import codecs
 from zpack_tpu.constants import CompressionMethod
 
 from .codecs.lz4 import TorchLZ4Codec
-from .codecs.zstd import HostZstdCodec
+from .codecs.zstd import TorchZstdCodec
 
 _METHODS = (int(CompressionMethod.ZSTD), int(CompressionMethod.LZ4))
 _saved: tuple[dict, str | None] | None = None
@@ -44,7 +45,7 @@ def install(device="cuda") -> None:
         _saved = ({m: codecs._REGISTRY.get(m) for m in _METHODS},
                   os.environ.get("ZPACK_TPU_ENGINE"))
     codecs.register(CompressionMethod.LZ4)(functools.partial(TorchLZ4Codec, dev))
-    codecs.register(CompressionMethod.ZSTD)(HostZstdCodec)
+    codecs.register(CompressionMethod.ZSTD)(functools.partial(TorchZstdCodec, dev))
     for m in _METHODS:
         codecs._INSTANCES.pop(m, None)
     os.environ["ZPACK_TPU_ENGINE"] = "tpu"

@@ -130,6 +130,14 @@ def lib() -> ctypes.CDLL:
             cdll.zp_huffman_encode.argtypes = [p, p, p, p, i, p, p, p]
             cdll.zp_fse_encode.restype = i
             cdll.zp_fse_encode.argtypes = [p, p, p, p, p, i, p, p, p]
+            cdll.zp_huffman_decode.restype = i
+            cdll.zp_huffman_decode.argtypes = [p, i64, p, i, p, i, p, i64, p, p]
+            cdll.zp_fse_decode.restype = i
+            cdll.zp_fse_decode.argtypes = [p, i64, p, p, p, p, i, p, p, p, p, p, p]
+            cdll.zp_rep_totals.restype = i
+            cdll.zp_rep_totals.argtypes = [p, p, p, p, i, p, p, p, p]
+            cdll.zp_rep_apply.restype = i
+            cdll.zp_rep_apply.argtypes = [p, p, p, p, i, p, p, p]
             cdll.zp_error_string.restype = ctypes.c_char_p
             cdll.zp_error_string.argtypes = [i]
             _LIB = cdll

@@ -1,8 +1,12 @@
-"""zstd FSE sequence-section encode for PyTorch.
+"""zstd FSE sequence sections for PyTorch: encode, decode, repeat offsets.
 
-Counterpart of the encode half of ``zpack_tpu/kernels/fse_jax.py``
+Counterpart of ``zpack_tpu/kernels/fse_jax.py``.  The encode half
 (``encode_seq_streams`` with ``_init_state``, and
-``DeviceSequenceEncoder``).  The kernel has two halves:
+``DeviceSequenceEncoder``) is described here; the decode half
+(``decode_seq_streams``, ``DeviceSequenceDecoder``) and the repeat-offset
+resolution (``rep_prefix_maps``, ``apply_rep_maps``) follow the same
+pattern, each contract stated by its plain version below.  The encoder has
+two halves:
 
 * a plain PyTorch version (``encode_seq_streams_plain``) that states the
   contract and runs on any device: a Python loop over the steps of the
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from zpack_tpu.codecs.zstd import seq as zseq
+from zpack_tpu.errors import DecompressError
 
 from . import _build
 from .huffman_torch import scatter_bits
@@ -50,8 +55,10 @@ TABLE = 512
 #: one packed table row: state table, delta_nb_bits, delta_find_state
 ROW = TABLE + 2 * NSYM
 
-#: launches of the hand-written kernel, counted by its wrapper only
-LAUNCHES = {"fse_encode": 0}
+#: launches of each hand-written kernel, counted by its wrapper only
+#: (``rep_totals`` and ``rep_apply`` are the two entry points of
+#: ``csrc/rep_resolve.cu``)
+LAUNCHES = {"fse_encode": 0, "fse_decode": 0, "rep_totals": 0, "rep_apply": 0}
 
 
 def reset_launches() -> None:
@@ -278,3 +285,419 @@ class TorchSequenceEncoder:
         off = batch["word_off"]
         return [plane[4 * int(off[i]): 4 * int(off[i]) + (int(total[i]) + 8) // 8]
                 for i in range(len(blocks))]
+
+
+# ---------------------------------------------------------------------------
+# Decode (counterpart of fse_jax.py:362-480 and DeviceSequenceDecoder)
+# ---------------------------------------------------------------------------
+
+#: baseline | extra-bit count << 20 per literal-length and match-length code
+#: (copies of fse_jax's ``_LL_CONST_NP`` / ``_ML_CONST_NP``)
+_LL_CONST_NP = (_LL_BASE_NP | (_LL_BITS_NP << 20)).astype(np.int32)  # (36,)
+_ML_CONST_NP = (_ML_BASE_NP | (_ML_BITS_NP << 20)).astype(np.int32)  # (53,)
+#: the columns of a decode batch's ``rows``
+DECODE_COLS = ("byte_start", "n_bytes", "bits_left0")
+#: the tensor arguments of :func:`decode_seq_streams`, in order
+DECODE_ARGS = ("payload", "rows", "seq_off", "al", "tables")
+
+
+def pack_decode_table(t, max_bits_pad: int = TABLE) -> np.ndarray:
+    """Pack an fse.DecodeTable into (TABLE,) int32 rows:
+    sym | nb_bits << 6 | new_state << 16 (sym<=52, nb<=9, ns<512).  Copy of
+    ``fse_jax.pack_decode_table``."""
+    out = np.zeros(max_bits_pad, np.int32)
+    size = 1 << t.al
+    out[:size] = (t.symbols.astype(np.int32)
+                  | (t.nb_bits.astype(np.int32) << 6)
+                  | (t.new_state.astype(np.int32) << 16))
+    return out
+
+
+def parse_headers(payload: bytes, pos: int, tables) -> tuple:
+    """Parse one block's sequence-section headers (count, modes, table
+    descriptors — the few-byte host part), mutating ``tables`` like the
+    host decoder.  Returns (nb_seq, bitstream bytes).  Copy of
+    ``fse_jax.DeviceSequenceDecoder.parse_headers``."""
+    nb_seq, pos = zseq.parse_nb_sequences(payload, pos)
+    if nb_seq == 0:
+        return 0, b""
+    if pos >= len(payload):
+        raise DecompressError("missing compression modes byte")
+    modes = payload[pos]
+    pos += 1
+    if modes & 0x3:
+        raise DecompressError("reserved compression-mode bits set")
+    tables.ll, pos = zseq._read_table(payload, pos, (modes >> 6) & 3, "ll",
+                                      zseq.LL_CODE_MAX, zseq.LL_MAX_AL, tables.ll)
+    tables.of, pos = zseq._read_table(payload, pos, (modes >> 4) & 3, "of",
+                                      zseq.OF_CODE_MAX, zseq.OF_MAX_AL, tables.of)
+    tables.ml, pos = zseq._read_table(payload, pos, (modes >> 2) & 3, "ml",
+                                      zseq.ML_CODE_MAX, zseq.ML_MAX_AL, tables.ml)
+    return nb_seq, payload[pos:]
+
+
+def _check_decode(payload, rows, seq_off, al, tables) -> None:
+    B = rows.shape[0]
+    if payload.dtype != torch.uint8 or payload.dim() != 1:
+        raise ValueError("payload must be a flat uint8 tensor")
+    if rows.dtype != torch.int64 or rows.shape != (B, len(DECODE_COLS)):
+        raise ValueError(f"rows must be (B, {len(DECODE_COLS)}) int64 {DECODE_COLS}")
+    if seq_off.dtype != torch.int64 or seq_off.shape != (B + 1,):
+        raise ValueError("seq_off must be (B + 1,) int64")
+    if al.dtype != torch.int32 or al.shape != (B, 3):
+        raise ValueError("al must be (B, 3) int32")
+    if tables.dtype != torch.int32 or tables.shape != (B, 3, TABLE):
+        raise ValueError(f"tables must be (B, 3, {TABLE}) int32")
+
+
+def decode_seq_streams_plain(payload, rows, seq_off, al, tables):
+    """Batched sequence-section bitstream decode in plain PyTorch: a Python
+    loop over the steps, vectorized over blocks, like the ``lax.scan`` of
+    ``fse_jax.decode_seq_streams``.
+
+    payload: flat uint8, block ``b``'s backward bitstream (after the table
+    descriptors) in bytes ``[byte_start, + n_bytes)``; rows: (B, 3) int64
+    (``DECODE_COLS``, ``bits_left0`` the sentinel's bit position);
+    seq_off: (B + 1,) int64 cumulative sequence counts from 0; al: (B, 3)
+    int32 and tables: (B, 3, 512) int32 (:func:`pack_decode_table`), both in
+    (ll, of, ml) order.  Initial states read LL, OF, ML; each step reads the
+    OF extra bits, then ML and LL in one window, then (but on the last
+    sequence) the LL, ML and OF state bits; reads below bit 0 give zeros.
+
+    Returns ``(lls, mls, ovs)``, each (seq_off[-1],) int32 (``ovs`` the raw
+    offset values), ``pos_f`` (B,) int32, 0 for a fully consumed stream,
+    and ``err`` (B,) bool, set where an offset code exceeds 30."""
+    _check_decode(payload, rows, seq_off, al, tables)
+    dev = payload.device
+    i64 = torch.int64
+    B = rows.shape[0]
+    total = int(seq_off[-1])
+    pos = rows[:, 2].clone()
+    n = seq_off[1:] - seq_off[:-1]
+    N = int(n.max()) if B else 0
+    if N == 0:
+        empty = torch.zeros(total, dtype=torch.int32, device=dev)
+        return (empty, empty.clone(), empty.clone(), pos.to(torch.int32),
+                torch.zeros(B, dtype=torch.bool, device=dev))
+    start, nbytes = rows[:, 0], rows[:, 1]
+    # each block's bytes behind 4 zero bytes; w40[b, j]: bytes j..j+4 as one
+    # little-endian integer, so a read of up to 32 bits at any shift is one
+    # gather (padded bit k = real bit k - 32, as fse_jax's read_bits)
+    P = int(nbytes.max())
+    k = torch.arange(P, device=dev)
+    ok = k < nbytes[:, None]
+    body = torch.where(ok, payload[torch.where(ok, start[:, None] + k, 0)].to(i64), 0)
+    buf = torch.nn.functional.pad(body, (4, 8))
+    w40 = sum(buf[:, j:j + P + 8] << (8 * j) for j in range(5)).reshape(-1)
+    row0 = torch.arange(B, device=dev) * (P + 8)
+
+    def read(pos, nb):  # pos, nb: (..., B)
+        kk = (pos + 32).clamp(min=0)
+        return (w40[row0 + (kk >> 3)] >> (kk & 7)) & ((1 << nb) - 1)
+
+    al64 = al.to(i64)
+    states = []
+    for c in range(3):  # LL, OF, ML
+        pos = pos - al64[:, c]
+        states.append(read(pos, al64[:, c]))
+    state = torch.stack(states, 1)
+    tab = tables.to(i64).reshape(B, 3 * TABLE)
+    lane = torch.arange(3, device=dev) * TABLE
+    # extra-bit counts by code, codes past the alphabets read as its last
+    ml_bits_of = torch.from_numpy(_ML_BITS_NP[np.minimum(np.arange(64), 52)]).to(dev).to(i64)
+    ll_bits_of = torch.from_numpy(_LL_BITS_NP[np.minimum(np.arange(64), 35)]).to(dev).to(i64)
+    act = torch.arange(N, device=dev)[:, None] < n  # (N, B)
+    upd = torch.arange(1, N + 1, device=dev)[:, None] < n
+    syms = torch.zeros((N, B, 3), dtype=i64, device=dev)
+    pos_v = torch.zeros((N, B), dtype=i64, device=dev)  # below a step's value bits
+    # the chain: codes and bit counts step by step; the values are read after
+    for i in range(N):
+        e = tab.gather(1, state + lane)
+        sym = torch.where(act[i, :, None], e & 0x3F, 0)  # ll, of, ml
+        syms[i] = sym
+        pos = pos - sym[:, 1].clamp(max=30) - ml_bits_of[sym[:, 2]] - ll_bits_of[sym[:, 0]]
+        pos_v[i] = pos
+        nbu = torch.where(upd[i, :, None], (e >> 6) & 0x3FF, 0)
+        tot = nbu.sum(1)
+        pos = pos - tot
+        wu = read(pos, tot)
+        of_x = wu & ((1 << nbu[:, 1]) - 1)
+        wu = wu >> nbu[:, 1]
+        x = torch.stack([wu >> nbu[:, 2], of_x, wu & ((1 << nbu[:, 2]) - 1)], 1)
+        state = torch.where(upd[i, :, None], (e >> 16) + x, state)
+    # the values, all steps at once: OF extra bits, then ML above LL
+    llc, ofc, mlc = syms.unbind(2)
+    err = (ofc > 30).any(0)
+    ofc = ofc.clamp(max=30)
+    mlc, llc = mlc.clamp(max=52), llc.clamp(max=35)
+    ml_b, ll_b = ml_bits_of[mlc], ll_bits_of[llc]
+    ov = torch.where(ofc > 0, (1 << ofc) + read(pos_v + ml_b + ll_b, ofc), 1)
+    w = read(pos_v, ml_b + ll_b)
+    ml_v = torch.from_numpy(_ML_BASE_NP).to(dev).to(i64)[mlc] + (w >> ll_b)
+    ll_v = torch.from_numpy(_LL_BASE_NP).to(dev).to(i64)[llc] + (w & ((1 << ll_b) - 1))
+    valid = act.T
+    return (*(v.T[valid].to(torch.int32) for v in (ll_v, ml_v, ov)), pos.to(torch.int32), err)
+
+
+def decode_seq_streams(payload, rows, seq_off, al, tables):
+    """:func:`decode_seq_streams_plain` on the CPU; on a GPU, the CUDA
+    decoder (``csrc/fse_decode.cu``).  Same inputs, same outputs."""
+    args = (payload, rows, seq_off, al, tables)
+    if payload.device.type == "cpu":
+        return decode_seq_streams_plain(*args)
+    if payload.device.type != "cuda":
+        raise ValueError("decode_seq_streams takes CPU or CUDA tensors")
+    _check_decode(*args)
+    for name, t in zip(DECODE_ARGS, args):
+        if t.device != payload.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {payload.device}")
+    B = rows.shape[0]
+    total = int(seq_off[-1])
+    lls, mls, ovs = (torch.empty(total, dtype=torch.int32, device=payload.device)
+                     for _ in range(3))
+    pos_f = torch.empty(B, dtype=torch.int32, device=payload.device)
+    err = torch.empty(B, dtype=torch.bool, device=payload.device)
+    if B == 0:
+        return lls, mls, ovs, pos_f, err
+    lib = _build.lib()
+    with torch.cuda.device(payload.device):
+        rc = lib.zp_fse_decode(
+            payload.data_ptr(), payload.numel(), rows.data_ptr(), seq_off.data_ptr(),
+            al.data_ptr(), tables.data_ptr(), B, lls.data_ptr(), mls.data_ptr(),
+            ovs.data_ptr(), pos_f.data_ptr(), err.data_ptr(),
+            torch.cuda.current_stream(payload.device).cuda_stream)
+    _build.check(rc, "fse_decode")
+    LAUNCHES["fse_decode"] += 1
+    return lls, mls, ovs, pos_f, err
+
+
+def build_decode_batch(items: list[tuple]) -> dict:
+    """The flat batch of :func:`decode_seq_streams` as numpy arrays
+    (``payload``, ``rows``, ``seq_off``, ``al``, ``tables``) from items
+    ``(bitstream, ll_table, of_table, ml_table, nb_seq)``.  Raises
+    DecompressError, as ``DeviceSequenceDecoder`` does, for a bitstream
+    with no sentinel bit."""
+    for it in items:
+        bs = it[0]
+        if not bs or bs[-1] == 0:
+            raise DecompressError("corrupt backward bitstream (no sentinel)")
+    nbytes = np.array([len(it[0]) for it in items], dtype=np.int64)
+    bl0 = np.array([(len(it[0]) - 1) * 8 + it[0][-1].bit_length() - 1 for it in items],
+                   dtype=np.int64)
+    packed: dict[int, np.ndarray] = {}
+    tabs = np.zeros((len(items), 3, TABLE), dtype=np.int32)
+    al = np.zeros((len(items), 3), dtype=np.int32)
+    for i, it in enumerate(items):
+        for c, t in enumerate(it[1:4]):  # ll, of, ml
+            if id(t) not in packed:
+                packed[id(t)] = pack_decode_table(t)
+            tabs[i, c] = packed[id(t)]
+            al[i, c] = t.al
+    ns = np.array([it[4] for it in items], dtype=np.int64)
+    return {"payload": np.frombuffer(bytearray(b"".join(it[0] for it in items)), dtype=np.uint8),
+            "rows": np.stack([np.cumsum(nbytes) - nbytes, nbytes, bl0], axis=1).reshape(-1, 3),
+            "seq_off": np.concatenate([[0], np.cumsum(ns)]).astype(np.int64),
+            "al": al, "tables": tabs}
+
+
+
+class TorchSequenceDecoder:
+    """Host wrapper for the batched sequence decode: batches the backward
+    bitstreams and their tables, decodes them on ``device`` in one launch
+    and checks that each stream was consumed exactly.  The device analog of
+    ``fse_jax.DeviceSequenceDecoder``, bit-exact vs
+    ``seq.decode_sequences``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def decode_batch_device(self, items: list[tuple]):
+        """items[i] = (bitstream bytes, ll_table, of_table, ml_table,
+        nb_seq).  Returns ``((lls, mls, ovs), seq_off)``: flat int32
+        tensors on the device (raw offset values, before repeat-offset
+        resolution), block i's at ``[seq_off[i], seq_off[i + 1])``, and
+        ``seq_off`` as numpy.  Raises DecompressError, with the messages of
+        ``DeviceSequenceDecoder``, for an offset code above 30 and a stream
+        not consumed exactly."""
+        batch = build_decode_batch(items)
+        lls, mls, ovs, pos_f, err = decode_seq_streams(
+            *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS))
+        pos_f = pos_f.cpu().numpy()
+        if err.cpu().numpy().any():
+            raise DecompressError("offset code out of device range")
+        for i, it in enumerate(items):
+            if it[4] and pos_f[i] != 0:
+                raise DecompressError("sequence bitstream not fully consumed"
+                                      if pos_f[i] > 0 else "sequence bitstream over-read")
+        return (lls, mls, ovs), batch["seq_off"]
+
+    def decode_batch(self, items: list[tuple]) -> tuple:
+        """Returns (lls, mls, ovs), each a list of np arrays (raw offset
+        values, before repeat-offset resolution)."""
+        if not items:
+            return [], [], []
+        flat, seq_off = self.decode_batch_device(items)
+        cuts = seq_off.tolist()
+        return tuple([a[s:e] for s, e in zip(cuts[:-1], cuts[1:])]
+                     for a in (t.cpu().numpy() for t in flat))
+
+
+# ---------------------------------------------------------------------------
+# Repeat offsets (counterpart of fse_jax.py:484-566)
+# ---------------------------------------------------------------------------
+
+
+def seq_maps(ovs, lls):
+    """Each sequence's repeat-offset update as a map out_j = in[sel_j] +
+    val_j, or val_j where sel_j = 3: the seven cases of
+    ``fse_jax.rep_prefix_maps``.  Returns sel (..., 3) int64 and val
+    (..., 3) int32."""
+    litz = lls == 0
+    new = ovs > 3
+    c2 = (~litz & (ovs == 2)) | (litz & (ovs == 1))  # (r1, r0, r2)
+    c3 = (~litz & (ovs == 3)) | (litz & (ovs == 2))  # (r2, r0, r1)
+    cd = litz & (ovs == 3)                           # (r0 - 1, r0, r1)
+    sel0 = torch.where(new, 3, torch.where(c2, 1, torch.where(c3, 2, 0)))
+    val0 = torch.where(new, ovs.to(torch.int32) - 3, torch.where(cd, -1, 0).to(torch.int32))
+    sel1 = torch.where(new | c2 | c3 | cd, 0, 1)
+    sel2 = torch.where(new | c3 | cd, 1, 2)
+    zero = torch.zeros_like(val0)
+    return torch.stack([sel0, sel1, sel2], -1), torch.stack([val0, zero, zero], -1)
+
+
+def _after(a_sel, a_val, b_sel, b_val):
+    """The map ``b`` applied after ``a`` (int32 values wrap, as in XLA)."""
+    const = b_sel == 3
+    bs = b_sel.clamp(max=2)
+    return (torch.where(const, 3, a_sel.gather(-1, bs)),
+            torch.where(const, b_val, a_val.gather(-1, bs) + b_val))
+
+
+def _padded(seq_off):
+    """The (B, N) view of flat per-block sequences: which lanes are valid,
+    and each lane's flat index (0 for padding)."""
+    n = seq_off[1:] - seq_off[:-1]
+    N = max(int(n.max()) if n.numel() else 0, 1)
+    k = torch.arange(N, device=seq_off.device)
+    valid = k < n[:, None]
+    return valid, torch.where(valid, seq_off[:-1, None] + k, 0)
+
+
+def _prefix_maps(ovs, lls, seq_off):
+    """Inclusive prefix compositions (B, N, 3) of every block's sequence
+    maps, identity past ``nb_seq``, by Hillis-Steele doubling over
+    gathers (torch has no associative scan); plus the (B, N) valid mask."""
+    valid, idx = _padded(seq_off)
+    B, N = valid.shape
+    ident = torch.arange(3, device=ovs.device).expand(B, N, 3)
+    if ovs.numel() == 0:
+        return ident, torch.zeros((B, N, 3), dtype=torch.int32, device=ovs.device), valid
+    sel, val = seq_maps(ovs[idx], lls[idx])
+    sel = torch.where(valid[..., None], sel, ident)
+    val = torch.where(valid[..., None], val, 0)
+    d = 1
+    while d < N:
+        prev_sel = torch.cat([ident[:, :d], sel[:, :-d]], 1)
+        prev_val = torch.cat([torch.zeros_like(val[:, :d]), val[:, :-d]], 1)
+        sel, val = _after(prev_sel, prev_val, sel, val)
+        d *= 2
+    return sel, val, valid
+
+
+def _check_rep(ovs, lls, seq_off, *more) -> None:
+    if seq_off.dtype != torch.int64 or seq_off.dim() != 1 or seq_off.shape[0] < 1:
+        raise ValueError("seq_off must be (B + 1,) int64")
+    for name, t in (("ovs", ovs), ("lls", lls), *more):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{name} must be a flat int32 tensor")
+
+
+def rep_totals_plain(ovs, lls, mls, seq_off):
+    """Per block, the composition of all its sequences' repeat-offset maps
+    (the map of ``fse_jax.rep_prefix_maps`` at ``nb_seq - 1``; identity
+    for an empty block) and the sums of its literal and match lengths.
+
+    ovs, lls, mls: flat int32, block ``b``'s sequences at ``[seq_off[b],
+    seq_off[b + 1])``, ``seq_off`` from 0.  Returns sel (B, 3) int32, val
+    (B, 3) int32, sums (B, 2) int64 ``(sum_ll, sum_ml)``."""
+    _check_rep(ovs, lls, seq_off, ("mls", mls))
+    sel, val, _ = _prefix_maps(ovs, lls, seq_off)
+    last = (seq_off[1:] - seq_off[:-1] - 1).clamp(min=0)[:, None, None].expand(-1, 1, 3)
+    valid, idx = _padded(seq_off)
+    sums = torch.zeros((valid.shape[0], 2), dtype=torch.int64, device=ovs.device)
+    if ovs.numel():
+        sums = torch.stack([torch.where(valid, t[idx].to(torch.int64), 0).sum(1)
+                            for t in (lls, mls)], 1)
+    return (sel.gather(1, last)[:, 0].to(torch.int32), val.gather(1, last)[:, 0], sums)
+
+
+def rep_apply_plain(ovs, lls, seq_off, entry):
+    """Resolved offsets: r0 of each sequence's inclusive prefix map applied
+    to its block's entry rep state ``entry`` (B, 3) int32
+    (``fse_jax.apply_rep_maps``).  Returns offsets (seq_off[-1],) int32 and
+    err (B,) bool, set where a block resolves an offset <= 0."""
+    _check_rep(ovs, lls, seq_off, ("entry", entry.reshape(-1)))
+    sel, val, valid = _prefix_maps(ovs, lls, seq_off)
+    e = entry[:, None, :].expand(-1, valid.shape[1], 3)
+    picked = e.gather(-1, sel[..., :1].clamp(max=2))[..., 0]
+    off = torch.where(sel[..., 0] == 3, val[..., 0], picked + val[..., 0])
+    return off[valid], (valid & (off <= 0)).any(1)
+
+
+def _rep_launch(name: str, tensors: tuple, outs: tuple, B: int) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous on {dev}")
+    if B == 0:
+        return
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"zp_{name}")(*(t.data_ptr() for t in tensors), B,
+                                        *(t.data_ptr() for t in outs),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+
+
+def rep_totals(ovs, lls, mls, seq_off):
+    """:func:`rep_totals_plain` on the CPU; on a GPU, the CUDA walk
+    (``csrc/rep_resolve.cu``).  Same inputs, same outputs."""
+    if ovs.device.type == "cpu":
+        return rep_totals_plain(ovs, lls, mls, seq_off)
+    if ovs.device.type != "cuda":
+        raise ValueError("rep_totals takes CPU or CUDA tensors")
+    _check_rep(ovs, lls, seq_off, ("mls", mls))
+    B = seq_off.shape[0] - 1
+    sel = torch.empty((B, 3), dtype=torch.int32, device=ovs.device)
+    val = torch.empty_like(sel)
+    sums = torch.empty((B, 2), dtype=torch.int64, device=ovs.device)
+    _rep_launch("rep_totals", (ovs, lls, mls, seq_off), (sel, val, sums), B)
+    return sel, val, sums
+
+
+def rep_apply(ovs, lls, seq_off, entry):
+    """:func:`rep_apply_plain` on the CPU; on a GPU, the CUDA walk
+    (``csrc/rep_resolve.cu``).  Same inputs, same outputs."""
+    if ovs.device.type == "cpu":
+        return rep_apply_plain(ovs, lls, seq_off, entry)
+    if ovs.device.type != "cuda":
+        raise ValueError("rep_apply takes CPU or CUDA tensors")
+    _check_rep(ovs, lls, seq_off, ("entry", entry.reshape(-1)))
+    B = seq_off.shape[0] - 1
+    if entry.shape != (B, 3):
+        raise ValueError("entry must be (B, 3) int32")
+    offs = torch.empty_like(ovs)
+    err = torch.empty(B, dtype=torch.bool, device=ovs.device)
+    _rep_launch("rep_apply", (ovs, lls, seq_off, entry), (offs, err), B)
+    return offs, err
+
+
+def eval_rep_map(sel, val, entry):
+    """Host-side apply of one map row (3,) to an entry triple — the
+    per-block stitching step.  Copy of ``fse_jax.eval_rep_map``."""
+    out = []
+    for j in range(3):
+        s, v = int(sel[j]), int(val[j])
+        out.append(v if s == 3 else int(entry[s]) + v)
+    return out

@@ -1,23 +1,28 @@
-"""zstd Huffman literal-stream encode for PyTorch.
+"""zstd Huffman literal streams for PyTorch: encode and decode.
 
-Counterpart of the encode half of ``zpack_tpu/kernels/huffman_jax.py``
-(``_encode_one_stream`` / ``encode_streams`` and ``DeviceHuffmanEncoder``).
-The kernel has two halves:
+Counterpart of ``zpack_tpu/kernels/huffman_jax.py``: the encode half
+(``_encode_one_stream`` / ``encode_streams`` and ``DeviceHuffmanEncoder``)
+and the decode half (``decode_streams_scan`` / ``decode_streams`` and
+``DeviceHuffmanDecoder``).  Each kernel has two halves:
 
-* a plain PyTorch version (``encode_streams_plain``) that states the
-  contract and runs on any device;
-* a wrapper (``encode_streams``) that takes the plain version for a tensor
-  on the CPU and launches the hand-written CUDA kernel
-  (``csrc/huffman_encode.cu``) for a tensor on a GPU.  It never falls back:
-  a build or launch error raises.
+* a plain PyTorch version (``encode_streams_plain``,
+  ``decode_streams_plain``) that states the contract and runs on any device;
+* a wrapper (``encode_streams``, ``decode_streams``) that takes the plain
+  version for a tensor on the CPU and launches the hand-written CUDA kernel
+  (``csrc/huffman_encode.cu``, ``csrc/huffman_decode.cu``) for a tensor on
+  a GPU.  It never falls back: a build or launch error raises.
 
-The contract is ``codecs/zstd/huffman.py:_encode_stream``'s.  A batch is
-one flat uint8 symbol buffer with ``(start, n)`` rows, one ``(256,)`` table
-per stream packed as ``code | len << 16``, and the first word of each
-stream's output in one flat u32 plane (``word_off``).  In stream ``s``,
-symbol ``i`` occupies bits ``[total_bits - incl_cumsum(len)[i], +len[i])``
-of its little-endian plane, so symbol 0 sits highest, and the sentinel bit
-sits at ``total_bits``.  The planes are returned in an int32 tensor.
+The encode contract is ``codecs/zstd/huffman.py:_encode_stream``'s.  A
+batch is one flat uint8 symbol buffer with ``(start, n)`` rows, one
+``(256,)`` table per stream packed as ``code | len << 16``, and the first
+word of each stream's output in one flat u32 plane (``word_off``).  In
+stream ``s``, symbol ``i`` occupies bits ``[total_bits -
+incl_cumsum(len)[i], +len[i])`` of its little-endian plane, so symbol 0
+sits highest, and the sentinel bit sits at ``total_bits``.  The planes are
+returned in an int32 tensor.
+
+The decode contract is ``huffman._decode_one_stream``'s, layout in
+:func:`decode_streams_plain`.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zpack_tpu.errors import CompressError
+from zpack_tpu.errors import CompressError, DecompressError
 
 from . import _build
 
@@ -33,8 +38,8 @@ from . import _build
 MAX_BITS = 11
 _M32 = 0xFFFFFFFF
 
-#: launches of the hand-written kernel, counted by its wrapper only
-LAUNCHES = {"huffman_encode": 0}
+#: launches of each hand-written kernel, counted by its wrapper only
+LAUNCHES = {"huffman_encode": 0, "huffman_decode": 0}
 
 
 def reset_launches() -> None:
@@ -215,3 +220,173 @@ class TorchHuffmanEncoder:
                 continue
             out.append(b"".join(len(e).to_bytes(2, "little") for e in es[:3]) + b"".join(es))
         return out
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+#: one decode table row: ``sym | nbits << 8`` for every MAX_BITS-bit window
+#: (a table of ``max_bits`` uses the first ``2^max_bits`` entries)
+DTABLE = 1 << MAX_BITS
+#: the columns of a decode batch's ``rows``
+DECODE_COLS = ("byte_start", "n_bytes", "start_bit", "n_syms", "dst_off", "table", "max_bits")
+#: the tensor arguments of :func:`decode_streams`, in order
+DECODE_ARGS = ("payload", "rows", "tables")
+
+
+def _check_decode(payload, rows, tables) -> None:
+    if payload.dtype != torch.uint8 or payload.dim() != 1:
+        raise ValueError("payload must be a flat uint8 tensor")
+    if rows.dtype != torch.int64 or rows.dim() != 2 or rows.shape[1] != len(DECODE_COLS):
+        raise ValueError(f"rows must be (S, {len(DECODE_COLS)}) int64 {DECODE_COLS}")
+    if tables.dtype != torch.int32 or tables.dim() != 2 or tables.shape[1] != DTABLE:
+        raise ValueError(f"tables must be (T, {DTABLE}) int32 sym | nbits << 8")
+
+
+def decode_streams_plain(payload, rows, tables, *, n_out: int):
+    """Batched backward Huffman stream decode in plain PyTorch.
+
+    payload: flat uint8, stream ``s`` in bytes ``[byte_start, + n_bytes)``;
+    rows: (S, 7) int64 (``DECODE_COLS``): the sentinel's bit position
+    ``start_bit``, the symbol count, the first output byte ``dst_off``, the
+    table row and its ``max_bits``; tables: (T, 2048) int32 ``sym | nbits
+    << 8``.  From ``p = start_bit``, each symbol is the table entry of the
+    ``max_bits`` bits below ``p`` (zero below bit 0), written to ``dst_off
+    + k``; then ``p = max(p - nbits, 0)``, the clamp of
+    ``huffman_jax.decode_streams_scan``.
+
+    Returns ``(out (n_out,) uint8, zero where no stream writes; final (S,)
+    int32)``: ``final`` is the position before the last symbol minus its
+    bit count, 0 for a fully consumed stream (and for ``n_syms = 0``)."""
+    _check_decode(payload, rows, tables)
+    dev = payload.device
+    S = rows.shape[0]
+    out = torch.zeros(n_out + 1, dtype=torch.uint8, device=dev)  # [n_out]: inactive lanes
+    final = torch.zeros(S, dtype=torch.int64, device=dev)
+    if S == 0:
+        return out[:n_out], final.to(torch.int32)
+    start, nbytes, p, n, dst, tab, mb = rows.unbind(1)
+    # the table entry at every bit position of every stream, in one flat
+    # bit space: stream s owns bits [bit0[s], bit0[s] + 8 * n_bytes[s])
+    nbits = nbytes * 8
+    bit0 = torch.cumsum(nbits, 0) - nbits
+    sid = torch.repeat_interleave(torch.arange(S, device=dev), nbits)
+    q = torch.arange(sid.numel(), device=dev) - bit0[sid]
+    lo = q - mb[sid]  # the window's lowest bit, may be negative
+    byte = lo >> 3
+    word = torch.zeros_like(lo)
+    for j in range(3):  # a window of <= 11 bits spans at most three bytes
+        b = byte + j
+        ok = (b >= 0) & (b < nbytes[sid])
+        v = payload[torch.where(ok, start[sid] + b, 0)].to(torch.int64)
+        word |= torch.where(ok, v, 0) << (8 * j)
+    win = (word >> (lo & 7)) & ((1 << mb[sid]) - 1)
+    entry = tables.to(torch.int64)[tab[sid], win]
+
+    for k in range(int(n.max())):
+        e = entry[bit0 + p]
+        nb = e >> 8
+        act = k < n
+        out[torch.where(act, dst + k, n_out)] = (e & 0xFF).to(torch.uint8)
+        final = torch.where(k == n - 1, p - nb, final)
+        p = (p - nb).clamp(min=0)
+    return out[:n_out], final.to(torch.int32)
+
+
+def decode_streams(payload, rows, tables, *, n_out: int):
+    """:func:`decode_streams_plain` on the CPU; on a GPU, the CUDA decoder
+    (``csrc/huffman_decode.cu``).  Same inputs, same outputs."""
+    args = (payload, rows, tables)
+    if payload.device.type == "cpu":
+        return decode_streams_plain(*args, n_out=n_out)
+    if payload.device.type != "cuda":
+        raise ValueError("decode_streams takes CPU or CUDA tensors")
+    _check_decode(*args)
+    for name, t in zip(DECODE_ARGS, args):
+        if t.device != payload.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {payload.device}")
+    S = rows.shape[0]
+    out = torch.zeros(n_out, dtype=torch.uint8, device=payload.device)
+    final = torch.zeros(S, dtype=torch.int32, device=payload.device)
+    if S == 0:
+        return out, final
+    lib = _build.lib()
+    with torch.cuda.device(payload.device):
+        rc = lib.zp_huffman_decode(
+            payload.data_ptr(), payload.numel(), rows.data_ptr(), S, tables.data_ptr(),
+            tables.shape[0], out.data_ptr(), n_out, final.data_ptr(),
+            torch.cuda.current_stream(payload.device).cuda_stream)
+    _build.check(rc, "huffman_decode")
+    LAUNCHES["huffman_decode"] += 1
+    return out, final
+
+
+def build_decode_batch(payloads: list[bytes], tables, n_symbols: list[int],
+                       dst_off: list[int] | None = None) -> dict:
+    """The flat batch of :func:`decode_streams` as numpy arrays (``payload``,
+    ``rows``, ``tables``), plus ``n_out``.  ``tables[i]`` is stream i's
+    ``HuffDecodeTable``; streams that share a table object share its row.
+    Streams decode back to back unless ``dst_off`` places them.  Raises
+    DecompressError, as ``DeviceHuffmanDecoder`` does, for a stream with no
+    sentinel bit."""
+    for p in payloads:
+        if not p or p[-1] == 0:
+            raise DecompressError("huffman stream missing sentinel")
+    n = np.asarray(n_symbols, dtype=np.int64)
+    if dst_off is None:
+        dst_off = np.cumsum(n) - n
+    dst_off = np.asarray(dst_off, dtype=np.int64)
+    unique: dict[int, int] = {}  # id(table) -> its row
+    for t in tables:
+        unique.setdefault(id(t), len(unique))
+    tab_rows = np.zeros((len(unique), DTABLE), dtype=np.int32)
+    tab_idx = np.array([unique[id(t)] for t in tables], dtype=np.int64)
+    for t, k in zip(tables, tab_idx):
+        tab_rows[k, : 1 << t.max_bits] = (t.symbols.astype(np.int32)
+                                          | (t.nb_bits.astype(np.int32) << 8))
+    nbytes = np.array([len(p) for p in payloads], dtype=np.int64)
+    start_bit = np.array([(len(p) - 1) * 8 + p[-1].bit_length() - 1 for p in payloads],
+                         dtype=np.int64)
+    rows = np.stack([np.cumsum(nbytes) - nbytes, nbytes, start_bit, n, dst_off, tab_idx,
+                     np.array([t.max_bits for t in tables], dtype=np.int64)],
+                    axis=1).reshape(-1, len(DECODE_COLS))
+    return {"payload": np.frombuffer(bytearray(b"".join(payloads)), dtype=np.uint8),
+            "rows": rows, "tables": tab_rows, "n_out": int((dst_off + n).max(initial=0))}
+
+
+
+class TorchHuffmanDecoder:
+    """Host wrapper: pack backward Huffman streams into one flat batch,
+    decode it on ``device`` in one launch.  The device analog of
+    ``huffman_jax.DeviceHuffmanDecoder``, bit-exact vs
+    ``huffman._decode_one_stream``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def decode_batch_device(self, payloads: list[bytes], tables, n_symbols: list[int],
+                            dst_off: list[int] | None = None, n_out: int | None = None):
+        """Returns ``(syms, final)``: the decoded symbols as a flat uint8
+        tensor on the device, stream i's at ``dst_off[i]`` (back to back
+        without ``dst_off``), ``n_out`` bytes long (the end of the last
+        stream without it), and ``final`` (S,) np.int32, which must be 0
+        for every valid stream."""
+        batch = build_decode_batch(payloads, tables, n_symbols, dst_off)
+        syms, final = decode_streams(
+            *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS),
+            n_out=batch["n_out"] if n_out is None else n_out)
+        return syms, final.cpu().numpy()
+
+    def decode_batch(self, payloads: list[bytes], tables, n_symbols: list[int]) -> list[np.ndarray]:
+        """payloads[i]: one backward-read huffman stream; tables[i]:
+        HuffDecodeTable; n_symbols[i]: expected regenerated count.  Raises
+        DecompressError for a stream that is not fully consumed."""
+        if not payloads:
+            return []
+        syms, final = self.decode_batch_device(payloads, tables, n_symbols)
+        if ((np.asarray(n_symbols) > 0) & (final != 0)).any():
+            raise DecompressError("huffman stream not fully consumed")
+        flat = syms.cpu().numpy()
+        ends = np.cumsum(n_symbols)
+        return [flat[e - k:e] for e, k in zip(ends.tolist(), n_symbols)]

@@ -1,21 +1,38 @@
-"""Batched lz4f extraction with the sequence replay on a torch device.
+"""Batched lz4f and zstd extraction on a torch device.
 
-Counterpart of ``zpack_tpu/parallel/extract.py:decompress_lz4f_batched``:
-the frame structure is walked on the host (magic, descriptor, header
-checksum, block checksums, content checksum), and every compressed block
-of every frame replays in one batched launch of the port's replayer.
-Frames with linked blocks raise, because their history makes decoding
-sequential; the codec sends those to the host decoder before calling here.
+Counterpart of ``zpack_tpu/parallel/extract.py``.
+
+* :func:`decompress_lz4f_batched`: the frame structure is walked on the
+  host (magic, descriptor, header checksum, block checksums, content
+  checksum), and every compressed block of every frame replays in one
+  batched launch of the port's replayer.  Frames with linked blocks raise,
+  because their history makes decoding sequential; the codec sends those
+  to the host decoder before calling here.
+* :func:`decompress_zstd_device`: the host walks frame and block headers
+  (:func:`walk_zstd`, a few bytes per block), then the device decodes every
+  Huffman literal stream, every FSE sequence section and every repeat
+  offset, the assembly lays the sequences out per frame with torch ops, and
+  each frame replays as one row of the LZ4 replayer.
+* :func:`decompress_zstd_batched`, its fallback: Huffman literals on the
+  device, sequences on the host.
 """
 
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple
+
+import numpy as np
+import torch
 
 from zpack_tpu.codecs.lz4 import frame as lz4f
-from zpack_tpu.codecs.xxh3 import XXH32State, xxh32
+from zpack_tpu.codecs.xxh3 import XXH32State, XXH64State, xxh32
+from zpack_tpu.codecs.zstd import frame as zframe, seq as zseq
 from zpack_tpu.errors import DecompressError
+from zpack_tpu.utils.observe import metrics
 
+from ..kernels import fse_torch, lz4_torch
+from ..kernels.huffman_torch import TorchHuffmanDecoder
 from ..kernels.lz4_torch import DeviceLZ4Replayer
 
 
@@ -121,3 +138,320 @@ def decompress_lz4f_batched(data: bytes, max_out: int | None = None, *,
     if max_out is not None and len(out) > max_out:
         raise DecompressError("lz4 frame output exceeds expected size")
     return out
+
+
+# ---------------------------------------------------------------------------
+# zstd
+# ---------------------------------------------------------------------------
+
+
+class ZstdBlock(NamedTuple):
+    btype: int
+    payload: bytes
+    rle_size: int
+    #: ("raw", literal bytes) or ("batch", first stream, n streams, n literals);
+    #: a raw or RLE block is one literal run
+    lits: tuple
+    #: where the sequence section starts (compressed blocks)
+    lits_end: int
+    #: the block's index into ``ZstdWalk.seq_items``; None without sequences
+    slot: int | None
+
+
+class ZstdWalk(NamedTuple):
+    frames: list          # (FrameHeader, [ZstdBlock], content checksum or None)
+    streams: list         # every Huffman literal stream, in order
+    tables: list          # the HuffDecodeTable of each stream
+    n_syms: list          # the symbol count of each stream
+    seq_items: list       # (bitstream, ll, of, ml table, nb_seq) per block with sequences
+
+
+def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
+    """Walk concatenated zstd frames without decoding an entropy stream:
+    frame and block headers, literal-section headers and Huffman tables,
+    and (with ``sequences``) the sequence-section headers and FSE tables.
+    Copy of the structural walk of ``extract.decompress_zstd_device``
+    (``extract.py:275-361``); dictionary frames and reserved block types
+    raise DecompressError there and here."""
+    frames: list = []
+    streams: list[bytes] = []
+    tables: list = []
+    n_syms: list[int] = []
+    seq_items: list[tuple] = []
+    pos = 0
+    n = len(data)
+    while pos < n:
+        if n - pos < 4:
+            raise DecompressError("truncated frame magic")
+        (magic,) = struct.unpack_from("<I", data, pos)
+        if zframe.MAGIC_SKIPPABLE_MIN <= magic <= zframe.MAGIC_SKIPPABLE_MAX:
+            if n - pos < 8:
+                raise DecompressError("truncated skippable frame")
+            (size,) = struct.unpack_from("<I", data, pos + 4)
+            pos += 8 + size
+            continue
+        if magic != zframe.MAGIC:
+            raise DecompressError(f"bad zstd magic {magic:#x}")
+        pos += 4
+        header = zframe.parse_frame_header(data, pos)
+        pos += header.header_size
+        if header.dict_id:
+            raise DecompressError(f"frame requires dictionary {header.dict_id} (none attached)")
+        lit_state = zframe.LiteralsState()
+        ftables = zseq.SequenceTables()
+        blocks = []
+        while True:
+            if n - pos < 3:
+                raise DecompressError("truncated block header")
+            bh = data[pos] | (data[pos + 1] << 8) | (data[pos + 2] << 16)
+            pos += 3
+            last = bh & 1
+            btype = (bh >> 1) & 3
+            bsize = bh >> 3
+            if btype == zframe.BLOCK_RLE:
+                payload = data[pos:pos + 1]
+                if len(payload) < 1:
+                    raise DecompressError("truncated RLE block")
+                pos += 1
+                blocks.append(ZstdBlock(btype, payload, bsize, ("raw", payload * bsize), 0, None))
+            elif btype == zframe.BLOCK_RAW:
+                payload = data[pos:pos + bsize]
+                if len(payload) < bsize:
+                    raise DecompressError("truncated block")
+                pos += bsize
+                blocks.append(ZstdBlock(btype, payload, 0, ("raw", payload), 0, None))
+            elif btype == zframe.BLOCK_COMPRESSED:
+                payload = data[pos:pos + bsize]
+                if len(payload) < bsize:
+                    raise DecompressError("truncated block")
+                pos += bsize
+                plan, lits_end = zframe.parse_literals_section(payload, 0, lit_state)
+                if plan[0] == "done":
+                    lits = ("raw", plan[1])
+                else:
+                    _, items, table = plan
+                    lits = ("batch", len(streams), len(items), sum(c for _, c in items))
+                    for s, cnt in items:
+                        streams.append(s)
+                        tables.append(table)
+                        n_syms.append(cnt)
+                slot = None
+                if sequences:
+                    nb, bs = fse_torch.parse_headers(payload, lits_end, ftables)
+                    if nb:
+                        slot = len(seq_items)
+                        seq_items.append((bs, ftables.ll, ftables.of, ftables.ml, nb))
+                blocks.append(ZstdBlock(btype, payload, 0, lits, lits_end, slot))
+            else:
+                raise DecompressError("reserved block type")
+            if last:
+                break
+        chk = None
+        if header.has_checksum:
+            if n - pos < 4:
+                raise DecompressError("truncated content checksum")
+            (chk,) = struct.unpack_from("<I", data, pos)
+            pos += 4
+        frames.append((header, blocks, chk))
+    return ZstdWalk(frames, streams, tables, n_syms, seq_items)
+
+
+def decompress_zstd_batched(data: bytes, max_out: int | None = None, *, device) -> bytes:
+    """One-shot decompress of concatenated zstd frames with every Huffman
+    literal stream decoded in one launch on ``device`` and the sequences
+    decoded and executed per block on the host
+    (``extract.decompress_zstd_batched``; no dictionaries)."""
+    w = walk_zstd(data, sequences=False)
+    decoded = TorchHuffmanDecoder(device).decode_batch(w.streams, w.tables, w.n_syms)
+    out = bytearray()
+    for header, blocks, chk in w.frames:
+        dec = zframe.FrameDecoder(header)
+        for b in blocks:
+            lits_pos = None
+            if b.btype == zframe.BLOCK_COMPRESSED:
+                if b.lits[0] == "raw":
+                    lits = b.lits[1]
+                else:
+                    _, base, cnt, _ = b.lits
+                    lits = b"".join(a.tobytes() for a in decoded[base:base + cnt])
+                lits_pos = (lits, b.lits_end)
+            out += dec.decode_block(b.btype, b.payload, b.rle_size, lits_pos=lits_pos)
+        if chk is not None and (dec.hasher.digest() & 0xFFFFFFFF) != chk:
+            raise DecompressError("content checksum mismatch")
+    if max_out is not None and len(out) > max_out:
+        raise DecompressError("zstd output exceeds expected size")
+    return bytes(out)
+
+
+def _literal_layout(w: ZstdWalk):
+    """Where every literal goes: frame j's literals fill row j of an
+    (F, LB) byte table in block order.  Returns LB, each stream's flat
+    destination, and the raw literal runs as (bytes, flat destination)."""
+    f_lits = []
+    dst = [0] * len(w.streams)
+    raw = []
+    for j, (_, blocks, _) in enumerate(w.frames):
+        lp = 0
+        for b in blocks:
+            if b.lits[0] == "raw":
+                if b.lits[1]:
+                    raw.append((b.lits[1], j, lp))
+                lp += len(b.lits[1])
+            else:
+                _, base, cnt, total = b.lits
+                sp = lp
+                for s in range(base, base + cnt):
+                    dst[s] = (j, sp)
+                    sp += w.n_syms[s]
+                lp += total
+        f_lits.append(lp)
+    LB = max(max(f_lits, default=0), 1)
+    return LB, [j * LB + p for j, p in dst], [(r, j * LB + p) for r, j, p in raw]
+
+
+def _scatter_flat(dst: torch.Tensor, parts: list[tuple]) -> None:
+    """Write byte runs ``(bytes, flat destination)`` into the flat ``dst``
+    (counterpart of ``extract._scatter_flat_u8``): one upload of the runs,
+    one scatter.  The runs are exact, so no lane is padding."""
+    if not parts:
+        return
+    dev = dst.device
+    lens = torch.tensor([len(p) for p, _ in parts], dtype=torch.int64)
+    shift = torch.tensor([d for _, d in parts], dtype=torch.int64) - (torch.cumsum(lens, 0) - lens)
+    flat = torch.frombuffer(bytearray(b"".join(p for p, _ in parts)), dtype=torch.uint8)
+    idx = torch.repeat_interleave(shift.to(dev), lens.to(dev), output_size=len(flat)) \
+        + torch.arange(len(flat), device=dev)
+    dst[idx] = flat.to(dev)
+
+
+def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device) -> bytes:
+    """Decompress concatenated zstd frames with all entropy decoding and
+    sequence execution on ``device`` (``extract.decompress_zstd_device``):
+
+    1. host structural walk (:func:`walk_zstd`);
+    2. every Huffman literal stream in one launch, each written straight to
+       its place in its frame's literal row; raw literal runs scattered in;
+    3. every FSE sequence section in one launch;
+    4. repeat offsets: per-block totals on the device, the entry states
+       stitched on the host frame by frame, then the offsets resolved;
+    5. assembly with torch ops: each frame's segments (sequences, plus the
+       literal tails and literal-only blocks) in one (F, SB) table, their
+       prefix sums, and the check that no match reaches before its frame;
+    6. one replay row per frame (``lz4_torch.replay``), then the content
+       checksums on the host.
+
+    Raises DecompressError, with the messages of the JAX function, on
+    malformed input; the codec then falls back (dictionaries, offset codes
+    above 30)."""
+    dev = torch.device(device)
+    with metrics.phase("torch.zstd_walk", len(data)):
+        w = walk_zstd(data)
+        LB, stream_dst, raw_parts = _literal_layout(w)
+    F = len(w.frames)
+
+    with metrics.phase("torch.huffman_decode", sum(w.n_syms)):
+        if w.streams:
+            lit_flat, final = TorchHuffmanDecoder(dev).decode_batch_device(
+                w.streams, w.tables, w.n_syms, stream_dst, n_out=F * LB)
+            if (final != 0).any():
+                raise DecompressError("huffman stream not fully consumed")
+        else:
+            lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
+        _scatter_flat(lit_flat, raw_parts)
+
+    B = len(w.seq_items)
+    if B:
+        with metrics.phase("torch.fse_decode", sum(it[4] for it in w.seq_items)):
+            (ll_d, ml_d, ov_d), seq_off = fse_torch.TorchSequenceDecoder(dev).decode_batch_device(
+                w.seq_items)
+        with metrics.phase("torch.rep_resolve", int(seq_off[-1])):
+            seq_off_d = torch.from_numpy(seq_off).to(dev)
+            tot_sel, tot_val, sums = (t.cpu().numpy() for t in
+                                      fse_torch.rep_totals(ov_d, ll_d, ml_d, seq_off_d))
+            entry = np.zeros((B, 3), np.int32)
+            for _, blocks, _ in w.frames:
+                rep = [1, 4, 8]
+                for b in blocks:
+                    if b.slot is not None:
+                        entry[b.slot] = rep
+                        rep = fse_torch.eval_rep_map(tot_sel[b.slot], tot_val[b.slot], rep)
+            offs_d, err = fse_torch.rep_apply(ov_d, ll_d, seq_off_d, torch.from_numpy(entry).to(dev))
+            if err.cpu().numpy().any():
+                raise DecompressError("repeat offset underflow")
+        sum_ll, sum_ml = sums[:, 0], sums[:, 1]
+
+    with metrics.phase("torch.zstd_assemble", F):
+        # host layout: every segment's frame row and column, known from the
+        # headers and the per-block sums
+        f_nseg, f_total = [], []
+        sq_shift = np.zeros(B, np.int64)
+        fixed = []  # literal-only segments: (frame, column, literal length)
+        for j, (_, blocks, _) in enumerate(w.frames):
+            nseg = total = 0
+            for b in blocks:
+                lt = len(b.lits[1]) if b.lits[0] == "raw" else b.lits[3]
+                if b.slot is None:
+                    total += lt
+                    if lt:
+                        fixed.append((j, nseg, lt))
+                        nseg += 1
+                    continue
+                tail = lt - int(sum_ll[b.slot])
+                if tail < 0:
+                    raise DecompressError("literal run overruns literals")
+                produced = lt + int(sum_ml[b.slot])
+                if produced > zframe.MAX_BLOCK_SIZE:
+                    # a block regenerates at most 128 KiB (RFC 8878)
+                    raise DecompressError("block regenerated size too large")
+                total += produced
+                sq_shift[b.slot] = nseg  # the frame row's base is added below
+                nseg += int(seq_off[b.slot + 1] - seq_off[b.slot])
+                if tail:
+                    fixed.append((j, nseg, tail))
+                    nseg += 1
+            f_nseg.append(nseg)
+            f_total.append(total)
+            if max_out is not None and sum(f_total) > max_out:
+                raise DecompressError("zstd output exceeds expected size")
+        outs = [b""] * F
+        if max(f_total, default=0) > 0:
+            SB = max(max(f_nseg), 1)
+            seg = torch.zeros((3, F * SB), dtype=torch.int32, device=dev)  # ll, ml, off
+            if B:
+                frame_of = np.array([j for j, (_, blocks, _) in enumerate(w.frames)
+                                     for b in blocks if b.slot is not None], np.int64)
+                shift = torch.from_numpy(frame_of * SB + sq_shift - seq_off[:-1]).to(dev)
+                nsq = torch.from_numpy(np.diff(seq_off)).to(dev)
+                idx = torch.repeat_interleave(shift, nsq, output_size=int(seq_off[-1])) \
+                    + torch.arange(int(seq_off[-1]), device=dev)
+                seg[:, idx] = torch.stack([ll_d, ml_d, offs_d])
+            if fixed:
+                fx = torch.tensor([[j * SB + p, lt] for j, p, lt in fixed], dtype=torch.int64)
+                seg[0, fx[:, 0].to(dev)] = fx[:, 1].to(torch.int32).to(dev)
+            # counterpart of extract._seg_prefix_validate
+            ll, ml, off = (t.view(F, SB).to(torch.int64) for t in seg)
+            seg_len = ll + ml
+            seg_st = torch.cumsum(seg_len, 1) - seg_len
+            lit_st = torch.cumsum(ll, 1) - ll
+            nseg_d = torch.tensor(f_nseg, dtype=torch.int32, device=dev)
+            valid = torch.arange(SB, device=dev) < nseg_d[:, None]
+            if (valid & (ml > 0) & (off > seg_st + ll)).any():
+                raise DecompressError("match offset beyond decoded history")
+
+    if max(f_total, default=0) > 0:
+        with metrics.phase("torch.replay", sum(f_total)):
+            rows = lz4_torch.replay(
+                lit_flat.view(F, LB), seg_st.to(torch.int32), lit_st.to(torch.int32),
+                seg[0].view(F, SB), seg[2].view(F, SB), nseg_d,
+                torch.tensor(f_total, dtype=torch.int32, device=dev),
+                n_out=max(f_total)).cpu().numpy()
+            outs = [rows[j, :t].tobytes() for j, t in enumerate(f_total)]
+
+    with metrics.phase("torch.zstd_checksum", sum(f_total)):
+        for (_, _, chk), fb in zip(w.frames, outs):
+            if chk is not None and (XXH64State(0).update(fb).digest() & 0xFFFFFFFF) != chk:
+                raise DecompressError("content checksum mismatch")
+    result = b"".join(outs)
+    if max_out is not None and len(result) > max_out:
+        raise DecompressError("zstd output exceeds expected size")
+    return result

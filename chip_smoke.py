@@ -16,8 +16,9 @@
    entries of a 10,011-file stored archive (each hash must equal the
    entry's CDR hash) and over the corpus, and both kernels must have been
    launched by that run;
-5. drives the LZ4 main path: ``zpack_tpu``'s Writer and Reader with the
-   port's engine on the GPU, over a deterministic 64 MiB corpus; the bytes
+5. drives the LZ4 main path: the port's Writer and Reader with nothing
+   installed (their default device is the GPU), over a deterministic 64 MiB
+   corpus; the bytes
    must round-trip, the host decoder must read the port's frames, and both
    LZ4 kernels must have been launched by that run;
 6. zstd compress: a first ``DeviceCompressor.compress_zstd`` run over a
@@ -39,12 +40,41 @@
    no fallback taken; ``native.zstd_decompress`` of the entry is timed for
    scale; the fallback ``decompress_zstd_batched`` must decode the first
    frame, and a frame with one corrupted byte must raise DecompressError;
-8. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
-9. prints one JSON line of per-kernel results, then, last,
-   ``{"ok": true, "device": {...}}``.
+8. the tokenizer's other wire formats and its size estimate: the "u16"
+   epilogue on the corpus in 8 KiB blocks, the "hash" epilogue at caps 8 and
+   16 and the "scatter" epilogue at cap 16 on the corpus in 64 KiB blocks,
+   the dictionary path's own windows (the cut's 8 KiB blocks behind the
+   dictionary in "pair" mode, its 4 KiB blocks in "u16" mode), and the
+   estimate of every one of those launches, each against its plain version
+   (exact);
+9. the shared-dictionary zstd path: a 2 KiB dictionary trained on the cut's
+   first 8 KiB, ``compress_zstd(cut, 3, dictionary=blob)`` at 8 KiB blocks
+   ("pair" mode, window 10,240) and at 4 KiB blocks ("u16" mode, window
+   6,144) with the launch counters at zero; the frames must decode to the
+   cut with the port's host decoder and the dictionary, and the mode's
+   tokenizer must have been launched (every tokenizer launch reduces the
+   estimate in its own body, so the estimate's launches are the tokenizer's);
+10. LZ4 ``compress`` of the corpus at 8 KiB blocks ("u16" mode), decoded by
+    the port's lz4f decoder; ``lz4_torch.entry("cuda")`` called once and
+    ``compress_block`` on a 16 KiB sample, decoded by the host block decoder;
+11. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
+12. prints one JSON line of per-kernel results (each kernel's launches on
+    its path, its error against the plain version, its time, the plain
+    version's, and the least time the card could take, ``bound_ms``), then,
+    last, ``{"ok": true, "device": {...}}``.
+
+``bound_ms`` is the larger of two times: the bytes of the kernel's inputs and
+outputs (each once) over the card's memory rate, and its operations over
+their peak rate.  Integer operations are counted at the card's float32 rate
+outside the tensor cores; a kernel whose work is a sequential chain per
+stream or block (the Huffman decoder, the FSE coders, the repeat offsets) is
+bound by its longest chain's steps at ``CHAIN_STEP_NS`` a step, one
+dependent table load from shared memory or L1 and a few integer operations.
+No single PyTorch call computes any of these functions, so ``library_ms``
+is null throughout.
 
 It exits non-zero without printing a result when no GPU is visible or any
-phase fails.  It never imports jax.
+phase fails.  It imports nothing of jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -64,6 +94,42 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS_BYTES = 64 << 20
 BLOCK = 64 << 10
 ZSTD_BYTES = 16 << 20
+#: published peaks of one H100 SXM: HBM3 bytes/s, float32 operations/s
+#: outside the tensor cores (the rate integer operations are held to here)
+HBM_BPS = 3.35e12
+OPS_PER_S = 67e12
+#: one step of a sequential decode or encode chain: a dependent table load
+#: from shared memory or L1 (about 30 cycles) and a few integer operations
+CHAIN_STEP_NS = 20.0
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the tensors (nested tuples and lists allowed; None skipped)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += tensor_bytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(moved: int, ops: float = 0.0, chain_steps: int = 0) -> dict:
+    """The least time the card could take: ``moved`` bytes at the memory
+    rate against ``ops`` operations at their peak rate or the longest
+    chain's steps; ``library_ms`` is null (no PyTorch call computes it)."""
+    t_bytes = moved / HBM_BPS * 1e3
+    t_ops = max(ops / OPS_PER_S * 1e3, chain_steps * CHAIN_STEP_NS * 1e-6)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def tokenize_bound(blocks, outs, depth: int, capj: int) -> dict:
+    """The match finder: the windows in, the wire arrays and the estimate
+    out; per byte a hash (about 8 operations) and ``depth`` candidates of up
+    to ``capj`` byte compares."""
+    return bound(tensor_bytes(blocks, outs) + 8, blocks.numel() * (8.0 + depth * (capj + 2)))
 
 
 def build_corpus(size: int, seed: int = 0) -> bytes:
@@ -159,7 +225,8 @@ def phase_tokenize(corpus: bytes, device, lz4_torch) -> dict:
     print(f"tokenize (256 x 64 KiB, depth 2, capj 8): kernel {ms:.3f} ms "
           f"({mb / ms * 1e3:.1f} MB/s), plain {plain_ms:.3f} ms "
           f"({mb / plain_ms * 1e3:.1f} MB/s)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **tokenize_bound(blocks, lz4_torch.tokenize(blocks, 2, 8), 2, 8)}
 
 
 def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz4block) -> dict:
@@ -193,7 +260,8 @@ def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz
             print(f"replay ({nbytes} decoded bytes): kernel {ms:.3f} ms "
                   f"({nbytes / ms / 1e3:.1f} MB/s), plain {plain_ms:.3f} ms "
                   f"({nbytes / plain_ms / 1e3:.1f} MB/s)")
-            result = {"ms": ms, "plain_ms": plain_ms}
+            result = {"ms": ms, "plain_ms": plain_ms,
+                      **bound(tensor_bytes(args, got), tensor_bytes(got))}
     result["max_abs_err"] = err
     return result
 
@@ -251,7 +319,8 @@ def phase_xxh3_batch(sets: dict, device, xxh3_torch, H) -> dict:
               f"xxh3_64_batch end to end {e2e_ms:.3f} ms ({mb / e2e_ms * 1e3:.1f} MB/s; "
               f"of which pack {pack_ms:.3f} ms, h2d {h2d_ms:.3f} ms)")
         if not result:  # the Pallas bench shape is the kernel's row
-            result = {"ms": ms, "plain_ms": plain_ms}
+            result = {"ms": ms, "plain_ms": plain_ms,
+                      **bound(tensor_bytes(flat, offsets, secret, acc, hashes), flat.numel())}
     result["max_abs_err"] = err
     return result
 
@@ -282,15 +351,14 @@ def phase_xxh3_stream(corpus: bytes, device, xxh3_torch, H) -> dict:
           f"plain {plain_ms:.3f} ms ({mb / plain_ms * 1e3:.1f} MB/s), "
           f"host native {native_ms:.3f} ms ({mb / native_ms * 1e3:.1f} MB/s), "
           f"xxh3_64 end to end {e2e_ms:.3f} ms ({mb / e2e_ms * 1e3:.1f} MB/s)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(tensor_bytes(data, secret, acc, hashes), data.numel())}
 
 
 def phase_xxh3_main(files: list[bytes], corpus: bytes, device, xxh3_torch, H) -> dict:
     """The XXH3 entry points over an archive's entries as the system writes
     them: every device hash must equal the entry's CDR hash."""
-    from zpack_tpu.constants import CompressionMethod
-    from zpack_tpu.reader import Reader
-    from zpack_tpu.writer import CompressOptions, Writer
+    from zpack_tpu_torch import CompressionMethod, CompressOptions, Reader, Writer
 
     store = CompressOptions(CompressionMethod.NONE)
     t0 = time.perf_counter()
@@ -323,41 +391,37 @@ def phase_xxh3_main(files: list[bytes], corpus: bytes, device, xxh3_torch, H) ->
 
 
 def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
-    from zpack_tpu.codecs.lz4 import frame as lz4frame
-    from zpack_tpu.constants import CompressionMethod
-    from zpack_tpu.reader import Reader
-    from zpack_tpu.utils.observe import metrics
-    from zpack_tpu.writer import CompressOptions, Writer
-    from zpack_tpu_torch import engine
+    from zpack_tpu_torch import CompressionMethod, CompressOptions, Reader, Writer, codecs
+    from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
+    from zpack_tpu_torch.utils.observe import metrics
 
-    engine.install(device)
-    try:
-        lz4_torch.reset_launches()
-        metrics.reset()
-        for rep in (1, 2):
-            t0 = time.perf_counter()
-            w = Writer.to_heap()
-            w.write_archive([("bench.bin", corpus, CompressOptions(CompressionMethod.LZ4, 1))])
-            t_create = time.perf_counter() - t0
-            buf = w.buffer
-            t0 = time.perf_counter()
-            r = Reader.from_memory(buf, shared=True)
-            out = r.read_file("bench.bin")  # verifies the entry's XXH3
-            t_extract = time.perf_counter() - t0
-            if out != corpus:
-                raise AssertionError("main path: round trip bytes differ")
-            mb = len(corpus) / 1e6
-            print(f"main path rep {rep}: create {mb / t_create:.2f} MB/s "
-                  f"({t_create:.3f} s), extract {mb / t_extract:.2f} MB/s "
-                  f"({t_extract:.3f} s), round trip {2 * mb / (t_create + t_extract):.2f} MB/s, "
-                  f"ratio {len(corpus) / len(buf):.4f} ({len(buf)} archive bytes)")
-        launches = dict(lz4_torch.LAUNCHES)
-        print("main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
-    finally:
-        engine.uninstall()
+    # nothing installed: the Writer and the Reader take the GPU by default
+    if codecs.device() != device:
+        raise AssertionError(f"the codecs' default device is {codecs.device()!r}, not {device!r}")
+    lz4_torch.reset_launches()
+    metrics.reset()
+    for rep in (1, 2):
+        t0 = time.perf_counter()
+        w = Writer.to_heap()
+        w.write_archive([("bench.bin", corpus, CompressOptions(CompressionMethod.LZ4, 1))])
+        t_create = time.perf_counter() - t0
+        buf = w.buffer
+        t0 = time.perf_counter()
+        r = Reader.from_memory(buf, shared=True)
+        out = r.read_file("bench.bin")  # verifies the entry's XXH3
+        t_extract = time.perf_counter() - t0
+        if out != corpus:
+            raise AssertionError("main path: round trip bytes differ")
+        mb = len(corpus) / 1e6
+        print(f"main path rep {rep}: create {mb / t_create:.2f} MB/s "
+              f"({t_create:.3f} s), extract {mb / t_extract:.2f} MB/s "
+              f"({t_extract:.3f} s), round trip {2 * mb / (t_create + t_extract):.2f} MB/s, "
+              f"ratio {len(corpus) / len(buf):.4f} ({len(buf)} archive bytes)")
+    launches = dict(lz4_torch.LAUNCHES)
+    print("main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
     print(f"main path launches: {json.dumps(launches)}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("lz4_tokenize", "lz4_replay"):
+        if launches[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
     e = r.get_file_entry("bench.bin")
     raw = bytes(buf[e.offset : e.offset + e.comp_size])
@@ -405,7 +469,7 @@ def record_zstd_batches(cut: bytes, device, DeviceCompressor, huffman_torch, fse
 
 
 def _check_batches(name: str, batches: list, device, kernel, plain, args: tuple,
-                   total_ok) -> dict:
+                   total_ok, chain_steps: int = 0, ops_per_item: float = 0.0) -> dict:
     """Hold ``kernel`` against ``plain`` on every batch (words and
     total_bits exact, and ``total_ok(total_bits, batch)`` true); time one
     pass over all batches."""
@@ -431,7 +495,9 @@ def _check_batches(name: str, batches: list, device, kernel, plain, args: tuple,
     ms = cuda_ms(lambda: run(kernel), 10)
     plain_ms = cuda_ms(lambda: run(plain), 2, warmup=False)
     print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (all batches of one run)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    items = sum(len(b[args[0]]) for b in batches)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(tensor_bytes(tensors, got), ops_per_item * items, chain_steps)}
 
 
 def phase_huffman(batches: list, device, huffman_torch) -> dict:
@@ -439,7 +505,8 @@ def phase_huffman(batches: list, device, huffman_torch) -> dict:
     print(f"huffman_encode input: {nsym} literal symbols")
     return _check_batches("huffman_encode", batches, device, huffman_torch.encode_streams,
                           huffman_torch.encode_streams_plain, huffman_torch.BATCH_ARGS,
-                          lambda total, b: np.array_equal(total, b["total_bits"]))
+                          lambda total, b: np.array_equal(total, b["total_bits"]),
+                          ops_per_item=8.0)  # a table load, a shift, an or, a scan share
 
 
 def phase_fse(batches: list, device, fse_torch) -> dict:
@@ -448,14 +515,15 @@ def phase_fse(batches: list, device, fse_torch) -> dict:
     print(f"fse_encode input: {nseq} sequences, longest block {longest}")
     return _check_batches("fse_encode", batches, device, fse_torch.encode_seq_streams,
                           fse_torch.encode_seq_streams_plain, fse_torch.BATCH_ARGS,
-                          lambda total, b: bool((total + 1 <= b["ub_bits"]).all()))
+                          lambda total, b: bool((total + 1 <= b["ub_bits"]).all()),
+                          chain_steps=longest)
 
 
 def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceCompressor,
                huffman_torch, fse_torch) -> dict:
-    from zpack_tpu import native
-    from zpack_tpu.codecs.zstd import frame as ZF
-    from zpack_tpu.utils.observe import metrics
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.codecs.zstd import frame as ZF
+    from zpack_tpu_torch.utils.observe import metrics
 
     dc = DeviceCompressor(device)  # level 1, 64 KiB blocks, as dryrun_multichip
     huffman_torch.reset_launches()
@@ -510,10 +578,7 @@ EXTRACT_KERNELS = {"huffman_decode": "decode_streams", "fse_decode": "decode_seq
 def write_zstd_entry(corpus: bytes, device, extract) -> tuple:
     """The corpus as one zstd level-3 entry, written by the Writer with the
     port's engine installed; returns the archive and the entry's bytes."""
-    from zpack_tpu.constants import CompressionMethod
-    from zpack_tpu.reader import Reader
-    from zpack_tpu.writer import CompressOptions, Writer
-    from zpack_tpu_torch import engine
+    from zpack_tpu_torch import CompressionMethod, CompressOptions, Reader, Writer, engine
 
     engine.install(device)
     try:
@@ -590,18 +655,25 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
         ms = cuda_ms(lambda: kernel(*args, **kwargs), 3 if name == "lz4_replay" else 10)
         plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 1, warmup=False)
         print(f"{name} (zstd extract): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        ops = chain = 0
+        if name == "huffman_decode":
+            chain = int(args[1][:, 3].max())  # the longest stream's symbols
+        elif name == "lz4_replay":
+            ops = tensor_bytes(got)  # one copy a byte
+        else:  # one walk of the longest block's sequences
+            seq_off = args[2] if name in ("fse_decode", "rep_apply") else args[3]
+            chain = int((seq_off[1:] - seq_off[:-1]).max())
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(tensor_bytes(args, got), ops, chain)}
     return res
 
 
 def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device, modules) -> dict:
     """``Reader.read_file`` of the zstd entry, twice, with every launch
     counter and the codec's fallback counts at zero."""
-    from zpack_tpu import native
-    from zpack_tpu.reader import Reader
-    from zpack_tpu.utils.observe import metrics
-    from zpack_tpu_torch import engine
+    from zpack_tpu_torch import Reader, engine, native
     from zpack_tpu_torch.codecs import zstd as port_zstd
+    from zpack_tpu_torch.utils.observe import metrics
 
     engine.install(device)
     try:
@@ -641,9 +713,9 @@ def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device, modules) ->
 
 def phase_zstd_fallback(comp: bytes, corpus: bytes, device, extract) -> None:
     """The fallback decodes the first frame; a corrupted byte raises."""
-    from zpack_tpu.codecs.zstd import frame as zframe
-    from zpack_tpu.errors import DecompressError
-    from zpack_tpu.parallel.host import _scan_zstd_frames
+    from zpack_tpu_torch.codecs.zstd import frame as zframe
+    from zpack_tpu_torch.errors import DecompressError
+    from zpack_tpu_torch.parallel.host import _scan_zstd_frames
 
     start, end, size = _scan_zstd_frames(comp)[0]
     t0 = time.perf_counter()
@@ -669,6 +741,158 @@ def phase_zstd_fallback(comp: bytes, corpus: bytes, device, extract) -> None:
               f"in {t:.3f} s); a zeroed byte at {pos - 1} raises DecompressError ({e})")
         return
     raise AssertionError("a corrupted zstd frame did not raise DecompressError")
+
+
+def corpus_blocks(corpus: bytes, B: int, device) -> torch.Tensor:
+    """The corpus, zero-padded to whole blocks, as (nb, B) on the device."""
+    nb = -(-len(corpus) // B)
+    arr = np.zeros(nb * B, dtype=np.uint8)
+    arr[:len(corpus)] = np.frombuffer(corpus, dtype=np.uint8)
+    return torch.from_numpy(arr.reshape(nb, B)).to(device)
+
+
+def phase_epilogues(corpus: bytes, cut: bytes, blob: bytes, device, lz4_torch) -> dict:
+    """Each wire format's epilogue, and the estimate every launch reduces,
+    against the plain versions at full width: the whole corpus in one
+    launch (8,192 blocks of 8 KiB, 1,024 of 64 KiB), and the dictionary
+    path's windows as ``phase_dict`` launches them (the cut's 8 KiB blocks
+    behind the dictionary in "pair" mode, a window of 10,240 bytes that is
+    no power of two; its 4 KiB blocks in "u16" mode).
+
+    Each row's ``ms`` is one launch, which writes the wire arrays and
+    reduces the estimate; its ``plain_ms`` is the same work, ``tokenize_plain``
+    and then ``est_plain``.  The ``lz4_est`` row is the "u16" dictionary
+    launch, and its ``max_abs_err`` the estimate's over every case."""
+    from zpack_tpu_torch.codecs.zstd.dict import as_dictionary
+
+    content = torch.frombuffer(bytearray(as_dictionary(blob).content), dtype=torch.uint8).to(device)
+
+    def windows(B: int) -> torch.Tensor:
+        data = corpus_blocks(cut, B, device)
+        return torch.cat([content.expand(len(data), len(content)), data], dim=1)
+
+    blocks64k = corpus_blocks(corpus, BLOCK, device)
+    cases = {
+        "lz4_tokenize": [("pair", 8, windows(8192), len(content))],
+        "lz4_tokenize_u16": [("u16", 8, blocks64k.view(-1, 8192), 0)],
+        "lz4_tokenize_hash": [("hash", 8, blocks64k, 0), ("hash", 16, blocks64k, 0)],
+        "lz4_tokenize_scatter": [("scatter", 16, blocks64k, 0)],
+        "lz4_est": [("u16", 8, windows(4096), len(content))],
+    }
+    res = {}
+    est_err = 0
+    for name, runs in cases.items():
+        err = 0
+        for mode, capj, blocks, dict_pad in runs:
+            got, est = lz4_torch.tokenize_est(blocks, 2, capj, mode, dict_pad)
+            want = lz4_torch.tokenize_plain(blocks, 2, capj, mode, dict_pad)
+            want_est = lz4_torch.est_plain(want, mode)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            ee = int((est - want_est).abs().max())
+            err, est_err = max(err, e), max(est_err, ee)
+            shape = f"{blocks.shape[0]} x {blocks.shape[1]}" + (
+                f", dictionary {dict_pad}" if dict_pad else "")
+            print(f"tokenize mode={mode} capj={capj} ({shape}): "
+                  f"{'equal' if e == 0 else 'DIFFERENT'} (max_abs_err {e}); estimate "
+                  f"{int(est[0])} {'equal' if ee == 0 else 'DIFFERENT'} to plain")
+            if e or ee:
+                raise AssertionError(f"tokenize kernel != plain in mode {mode} capj {capj}")
+            del want
+        # timed at the last run of the case (cap 16 for "hash")
+        mb = blocks.numel() / 1e6
+        ms = cuda_ms(lambda: lz4_torch.tokenize_est(blocks, 2, capj, mode, dict_pad), 10)
+        plain_ms = cuda_ms(lambda: lz4_torch.est_plain(
+            lz4_torch.tokenize_plain(blocks, 2, capj, mode, dict_pad), mode), 2)
+        print(f"{name} ({shape}, depth 2, capj {capj}): kernel {ms:.3f} ms "
+              f"({mb / ms * 1e3:.1f} MB/s), plain {plain_ms:.3f} ms")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **tokenize_bound(blocks, got, 2, capj)}
+    res["lz4_est"]["max_abs_err"] = est_err
+    return res
+
+
+def train_blob(cut: bytes) -> bytes:
+    """A 2 KiB dictionary trained on 16 samples of 512 bytes, the recipe of
+    the JAX package's ``dryrun_multichip``."""
+    from zpack_tpu_torch.codecs.zstd.dict import train_dictionary
+
+    return train_dictionary([cut[i:i + 512] for i in range(0, 8192, 512)], 2048)
+
+
+def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> dict:
+    """The shared-dictionary zstd path at 8 KiB blocks ("pair" mode) and at
+    4 KiB blocks ("u16" mode); each frame set decodes to the cut."""
+    from zpack_tpu_torch.codecs.zstd import frame as ZF
+    from zpack_tpu_torch.utils.observe import metrics
+
+    launches = {}
+    mb = len(cut) / 1e6
+    for B, key in ((8192, "lz4_tokenize"), (4096, "lz4_tokenize_u16")):
+        dc = DeviceCompressor(device, block_size=B)
+        lz4_torch.reset_launches()
+        metrics.reset()
+        t0 = time.perf_counter()
+        comp = dc.compress_zstd(cut, 3, dictionary=blob)
+        t = time.perf_counter() - t0
+        run = dict(lz4_torch.LAUNCHES)
+        print(f"dictionary path B={B} ({dc._mode(2048)} mode, {len(cut)} bytes): "
+              f"{mb / t:.2f} MB/s ({t:.3f} s), ratio {len(cut) / len(comp):.4f} "
+              f"({len(comp)} bytes), launches {json.dumps(run)}")
+        print(f"dictionary path B={B} phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
+        if run[key] <= 0:
+            raise AssertionError(f"dictionary path B={B} never launched {key}")
+        t0 = time.perf_counter()
+        out = ZF.decompress(comp, len(cut), dictionary=blob)
+        if out != cut:
+            raise AssertionError(
+                f"dictionary path B={B}: the host decoder does not give the cut back")
+        print(f"dictionary path B={B}: the host decoder with the dictionary gives the cut back "
+              f"({time.perf_counter() - t0:.3f} s)")
+        launches[B] = run
+    return launches
+
+
+def phase_lz4_u16(corpus: bytes, device, DeviceCompressor, lz4_torch) -> dict:
+    """LZ4 ``compress`` at 8 KiB blocks ships the "u16" wire format."""
+    from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
+
+    lz4_torch.reset_launches()
+    t0 = time.perf_counter()
+    comp = DeviceCompressor(device, block_size=8192).compress(corpus)
+    t = time.perf_counter() - t0
+    run = dict(lz4_torch.LAUNCHES)
+    if run["lz4_tokenize_u16"] <= 0 or run["lz4_tokenize"]:
+        raise AssertionError(f"LZ4 compress at 8 KiB blocks did not run in u16 mode: {run}")
+    if lz4frame.decompress_frame(comp, len(corpus)) != corpus:
+        raise AssertionError("LZ4 u16 mode: the lz4f decoder does not give the corpus back")
+    print(f"LZ4 compress at 8 KiB blocks (u16 mode): {len(corpus) / 1e6 / t:.2f} MB/s "
+          f"({t:.3f} s), ratio {len(corpus) / len(comp):.4f}, launches {json.dumps(run)}; "
+          f"the lz4f decoder gives the corpus back")
+    return run
+
+
+def phase_entry(corpus: bytes, device, lz4_torch, lz4block) -> dict:
+    """``entry("cuda")`` once, and ``compress_block`` on a 16 KiB sample."""
+    forward, (sample,) = lz4_torch.entry(device)
+    lz4_torch.reset_launches()
+    src, mlen = forward(sample)
+    torch.cuda.synchronize()
+    want = lz4_torch.tokenize_plain(sample[None, :], 2, 16, "scatter")
+    if src.shape != (16384,) or max_abs_err([src, mlen], [want[0][0], want[1][0]]):
+        raise AssertionError("entry: forward(sample) disagrees with the plain version")
+    raw = corpus[12345:12345 + 16384]
+    comp = lz4_torch.compress_block(raw, device)
+    if lz4block.decompress_block(comp, len(raw)) != raw:
+        raise AssertionError("compress_block: the host block decoder does not give the sample back")
+    run = dict(lz4_torch.LAUNCHES)
+    print(f"entry: forward(sample) gives {int((mlen >= 4).sum())} match positions, equal to plain; "
+          f"compress_block: {len(raw)} -> {len(comp)} bytes, decoded by the host block decoder; "
+          f"launches {json.dumps(run)}")
+    for k in ("lz4_tokenize_scatter", "lz4_tokenize_hash"):
+        if run[k] <= 0:
+            raise AssertionError(f"entry / compress_block never launched {k}")
+    return run
 
 
 def phase_cli(corpus: bytes) -> None:
@@ -712,8 +936,8 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    from zpack_tpu.codecs import xxh3 as H
-    from zpack_tpu.codecs.lz4 import block as lz4block
+    from zpack_tpu_torch.codecs import xxh3 as H
+    from zpack_tpu_torch.codecs.lz4 import block as lz4block
     from zpack_tpu_torch.kernels import _build, fse_torch, huffman_torch, lz4_torch, xxh3_torch
     from zpack_tpu_torch.parallel import extract
     from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
@@ -758,24 +982,52 @@ def main() -> int:
     zk = phase_zstd_extract_kernels(zcomp, corpus, device, extract, modules)
     zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device, modules)
     phase_zstd_fallback(zcomp, corpus, device, extract)
+    del zbuf, zcomp, rec
+    blob = train_blob(cut)
+    ep = phase_epilogues(corpus, cut, blob, device, lz4_torch)
+    d_launches = phase_dict(cut, blob, device, DeviceCompressor, lz4_torch)
+    u16_launches = phase_lz4_u16(corpus, device, DeviceCompressor, lz4_torch)
+    e_launches = phase_entry(corpus, device, lz4_torch, lz4block)
     phase_cli(corpus)
 
-    jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                      or m.startswith(("zpack_tpu.kernels", "zpack_tpu.parallel.pipeline",
-                                       "zpack_tpu.parallel.extract")))
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "zpack_tpu"))
     if jax_mods:
-        raise AssertionError(f"jax-side modules were imported: {jax_mods}")
+        raise AssertionError(f"modules of jax or of the JAX package were imported: {jax_mods}")
     print(f"card: {card}")
     kernels = [
         {"name": "lz4_tokenize", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
          "replaces": "zpack_tpu/kernels/lz4_pallas.py:106",
-         "launches": launches["lz4_tokenize"], **tok},
+         "launches": launches["lz4_tokenize"], **tok,
+         "max_abs_err": max(tok["max_abs_err"], ep["lz4_tokenize"]["max_abs_err"]),
+         "dictionary_path_launches": d_launches[8192]["lz4_tokenize"],
+         "dictionary_window_ms": ep["lz4_tokenize"]["ms"],
+         "dictionary_window_plain_ms": ep["lz4_tokenize"]["plain_ms"],
+         "dictionary_window_bound_ms": ep["lz4_tokenize"]["bound_ms"]},
+        {"name": "lz4_tokenize_u16", "route": "cuda",
+         "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
+         "replaces": "zpack_tpu/kernels/lz4_jax.py:119",
+         "launches": d_launches[4096]["lz4_tokenize_u16"], **ep["lz4_tokenize_u16"],
+         "lz4_compress_launches": u16_launches["lz4_tokenize_u16"]},
+        {"name": "lz4_tokenize_hash", "route": "cuda",
+         "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
+         "replaces": "zpack_tpu/kernels/lz4_jax.py:50",
+         "launches": e_launches["lz4_tokenize_hash"], **ep["lz4_tokenize_hash"]},
+        {"name": "lz4_tokenize_scatter", "route": "cuda",
+         "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
+         "replaces": "zpack_tpu/kernels/lz4_jax.py:266",
+         "launches": e_launches["lz4_tokenize_scatter"], **ep["lz4_tokenize_scatter"]},
+        {"name": "lz4_est", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
+         "replaces": "zpack_tpu/parallel/pipeline.py:92",
+         "launches": sum(n for k, n in d_launches[4096].items() if k.startswith("lz4_tokenize")),
+         **ep["lz4_est"]},
         {"name": "lz4_replay", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_replay.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:491",
          "launches": launches["lz4_replay"], **rep,
          "max_abs_err": max(rep["max_abs_err"], zk["lz4_replay"]["max_abs_err"]),
          "zstd_rows_launches": zx_launches["lz4_replay"],
-         "zstd_rows_ms": zk["lz4_replay"]["ms"], "zstd_rows_plain_ms": zk["lz4_replay"]["plain_ms"]},
+         "zstd_rows_ms": zk["lz4_replay"]["ms"], "zstd_rows_plain_ms": zk["lz4_replay"]["plain_ms"],
+         "zstd_rows_bound_ms": zk["lz4_replay"]["bound_ms"]},
         {"name": "xxh3_batch", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_batch.cu",
          "replaces": "zpack_tpu/kernels/xxh3_pallas.py:77",
          "launches": x_launches["xxh3_batch"], **xb},
@@ -801,7 +1053,9 @@ def main() -> int:
          "launches": zx_launches["rep_totals"] + zx_launches["rep_apply"],
          "max_abs_err": max(zk["rep_totals"]["max_abs_err"], zk["rep_apply"]["max_abs_err"]),
          "ms": zk["rep_totals"]["ms"] + zk["rep_apply"]["ms"],
-         "plain_ms": zk["rep_totals"]["plain_ms"] + zk["rep_apply"]["plain_ms"]},
+         "plain_ms": zk["rep_totals"]["plain_ms"] + zk["rep_apply"]["plain_ms"],
+         "bound_ms": zk["rep_totals"]["bound_ms"] + zk["rep_apply"]["bound_ms"],
+         "bound_by": zk["rep_totals"]["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

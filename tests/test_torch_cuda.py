@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
 Every test here needs a CUDA GPU and skips without one.  This file imports
-no jax, so it also runs where jax is not installed:
+no jax and nothing of the JAX package, so it also runs where jax is not
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -10,15 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from zpack_tpu import native
-from zpack_tpu.codecs import xxh3 as H
-from zpack_tpu.codecs.lz4 import block as lz4block
-from zpack_tpu.codecs.zstd import encode as zenc, huffman as zhuf, seq as zseq
-from zpack_tpu.constants import CompressionMethod
-from zpack_tpu.reader import Reader
-from zpack_tpu.writer import CompressOptions, Writer
-from zpack_tpu.codecs.zstd import fse as zfse
-from zpack_tpu_torch import engine
+from zpack_tpu_torch import engine, native
+from zpack_tpu_torch.codecs import xxh3 as H
+from zpack_tpu_torch.codecs.lz4 import block as lz4block, frame as lz4frame
+from zpack_tpu_torch.codecs.zstd import encode as zenc, frame as zframe, huffman as zhuf, seq as zseq
+from zpack_tpu_torch.codecs.zstd import fse as zfse
+from zpack_tpu_torch.codecs.zstd.dict import train_dictionary
+from zpack_tpu_torch.constants import CompressionMethod
+from zpack_tpu_torch.reader import Reader
+from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch, xxh3_torch
 from zpack_tpu_torch.parallel import extract
@@ -60,6 +61,86 @@ def test_tokenize_kernel_matches_plain(cuda, B, depth, capj):
     assert torch.equal(got[1], want[1])
 
 
+def _windows(B: int, dict_pad: int, cuda) -> torch.Tensor:
+    rows = np.frombuffer(b"".join(_rows(B)), np.uint8).reshape(-1, B)
+    head = np.frombuffer(_text(dict_pad, 9), np.uint8)
+    return torch.from_numpy(
+        np.concatenate([np.broadcast_to(head, (len(rows), dict_pad)), rows], axis=1).copy()).to(cuda)
+
+
+@pytest.mark.parametrize("depth", [2, 8])
+@pytest.mark.parametrize("mode,capj,B,dict_pad", [
+    ("u16", 8, 8192, 0), ("u16", 8, 4096, 2048), ("u16", 8, 1000, 24),
+    ("pair", 8, 8192, 2048), ("pair", 8, 63488, 2048),
+    ("hash", 8, 65536, 0), ("hash", 16, 65536, 0), ("hash", 8, 16384, 0), ("hash", 16, 384, 0),
+    ("scatter", 16, 65536, 0), ("scatter", 16, 16384, 0), ("scatter", 16, 8192, 2048),
+])
+def test_tokenize_epilogues_and_est_match_plain(cuda, mode, capj, B, dict_pad, depth):
+    blocks = _windows(B, dict_pad, cuda)
+    lz4_torch.reset_launches()
+    got, est = lz4_torch.tokenize_est(blocks, depth, capj, mode, dict_pad)
+    want = lz4_torch.tokenize_plain(blocks, depth, capj, mode, dict_pad)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+    assert torch.equal(est, lz4_torch.est_plain(want, mode))
+    key = "lz4_tokenize" if mode == "pair" else f"lz4_tokenize_{mode}"
+    assert lz4_torch.LAUNCHES == {**dict.fromkeys(lz4_torch.LAUNCHES, 0), key: 1}
+
+
+def test_tokenize_refuses_what_the_wire_cannot_hold(cuda):
+    blocks = _windows(8192, 2048, cuda)
+    with pytest.raises(ValueError, match="13 bits"):
+        lz4_torch.tokenize(blocks, 2, 8, "u16", 2048)
+    with pytest.raises(ValueError, match="3 bits"):
+        lz4_torch.tokenize(blocks[:, :8192].contiguous(), 2, 16, "u16")
+    with pytest.raises(ValueError, match="no dictionary"):
+        lz4_torch.tokenize(blocks, 2, 8, "hash", 2048)
+
+
+@pytest.mark.parametrize("B", [4096, 8192])
+def test_compress_zstd_with_dictionary_on_cuda(cuda, B):
+    data = _text(300000, 50) + np.random.default_rng(51).integers(
+        0, 256, 40000, dtype=np.uint8).tobytes() + _text(4321, 52)
+    blob = train_dictionary([data[i:i + 512] for i in range(0, 8192, 512)], 2048)
+    lz4_torch.reset_launches()
+    got = DeviceCompressor(cuda, block_size=B).compress_zstd(data, 3, dictionary=blob)
+    key = "lz4_tokenize_u16" if B == 4096 else "lz4_tokenize"
+    other = "lz4_tokenize" if B == 4096 else "lz4_tokenize_u16"
+    assert lz4_torch.LAUNCHES[key] > 0 and lz4_torch.LAUNCHES[other] == 0
+    assert got == DeviceCompressor("cpu", block_size=B).compress_zstd(data, 3, dictionary=blob)
+    assert zframe.decompress(got, dictionary=blob) == data
+
+
+def test_lz4_compress_u16_mode_on_cuda(cuda):
+    data = _text(500000, 53) + bytes(30001)
+    lz4_torch.reset_launches()
+    dc = DeviceCompressor(cuda, block_size=8192)
+    got = dc.compress(data)
+    assert lz4_torch.LAUNCHES["lz4_tokenize_u16"] > 0 and lz4_torch.LAUNCHES["lz4_tokenize"] == 0
+    assert got == DeviceCompressor("cpu", block_size=8192).compress(data)
+    assert lz4frame.decompress_frame(got, len(data)) == data
+    cpu, gpu = DeviceCompressor("cpu", block_size=8192).tokenize(data), dc.tokenize(data)
+    assert cpu[2:] == gpu[2:] and all(np.array_equal(a, b) for a, b in zip(cpu[:2], gpu[:2]))
+
+
+def test_entry_and_compress_block_on_cuda(cuda):
+    forward, (sample,) = lz4_torch.entry(cuda)
+    cpu_forward, (cpu_sample,) = lz4_torch.entry("cpu")
+    lz4_torch.reset_launches()
+    got, want = forward(sample), cpu_forward(cpu_sample)
+    assert lz4_torch.LAUNCHES["lz4_tokenize_scatter"] == 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    for n in (5, 300, 16384, 20001):
+        raw = _text(n, n)
+        comp = lz4_torch.compress_block(raw, cuda)
+        assert comp == lz4_torch.compress_block(raw, "cpu")
+        assert lz4block.decompress_block(comp, len(raw)) == raw
+    assert lz4_torch.LAUNCHES["lz4_tokenize_hash"] == 3
+
+
 def test_replay_kernel_matches_plain(cuda):
     raws = [_text(65536, 5), b"a" * 5000 + b"bc" * 2000, b"x" * 65536, _text(1000, 6),
             np.random.default_rng(7).integers(0, 256, 3000, dtype=np.uint8).tobytes()]
@@ -74,8 +155,7 @@ def test_replay_kernel_matches_plain(cuda):
     assert [out[i, : len(r)].tobytes() for i, r in enumerate(raws)] == raws
 
 
-def test_engine_round_trip_launches_both_kernels(cuda, monkeypatch):
-    monkeypatch.delenv("ZPACK_TPU_ENGINE", raising=False)
+def test_engine_round_trip_launches_both_kernels(cuda):
     data = _text(1 << 20, 8) + bytes(70000)
     engine.install(cuda)
     try:
@@ -331,8 +411,7 @@ def test_replay_kernel_matches_plain_on_long_rows(cuda):
     assert [out[i, : len(r)].tobytes() for i, r in enumerate(raws)] == raws
 
 
-def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda, monkeypatch):
-    monkeypatch.delenv("ZPACK_TPU_ENGINE", raising=False)
+def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):
     rng = np.random.default_rng(45)
     data = _text(3 << 20, 46) + rng.integers(0, 256, 300000, dtype=np.uint8).tobytes()
     engine.install(cuda)

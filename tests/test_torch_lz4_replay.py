@@ -7,8 +7,9 @@ import torch
 
 from test_kernels import _mix
 from zpack_tpu.codecs.lz4 import block as lz4block
-from zpack_tpu.errors import DecompressError
+from zpack_tpu.errors import DecompressError as JaxDecompressError
 from zpack_tpu.kernels import lz4_jax
+from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import lz4_torch
 
 torch.set_num_threads(1)
@@ -74,7 +75,7 @@ def test_offset_before_block_start_raises_where_jax_clamps():
     JAX replay clamps the offset and returns bytes (a documented
     divergence of the reference, pinned here)."""
     bad = bytes([0x10, 0x61, 0x05, 0x00, 0x50]) + b"bcdef"
-    with pytest.raises(DecompressError, match="beyond output start"):
+    with pytest.raises(JaxDecompressError, match="beyond output start"):
         lz4block.decompress_block(bad, 100)
     with pytest.raises(DecompressError, match="beyond output start"):
         _replayer([bad], [100])
@@ -88,7 +89,7 @@ def test_parse_matches_jax_on_edges(blk):
     or rejects (offsets before the block start aside)."""
     try:
         want = lz4_jax.parse_block_sequences(blk)
-    except DecompressError:
+    except JaxDecompressError:
         with pytest.raises(DecompressError):
             lz4_torch.parse_block_sequences(blk)
         return

@@ -1,16 +1,23 @@
 """The port's LZ4 compressor and batched extract against the JAX package's
-mesh pipeline on one device: frames byte-identical, decoded bytes equal."""
+mesh pipeline on one device: frames byte-identical, decoded bytes equal; and
+the twins of ``__graft_entry__.entry()`` and ``lz4_jax.compress_block_tpu``."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import __graft_entry__
 from test_kernels import _mix
-from zpack_tpu.codecs.lz4 import frame as lz4frame
-from zpack_tpu.errors import DecompressError
+from zpack_tpu.codecs.lz4 import block as jax_lz4block, frame as jax_lz4frame
+from zpack_tpu.errors import DecompressError as JaxDecompressError
+from zpack_tpu.kernels import lz4_jax
 from zpack_tpu.parallel import extract as jax_extract
 from zpack_tpu.parallel.pipeline import MeshCompressor, make_mesh
+from zpack_tpu_torch import native
+from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
+from zpack_tpu_torch.errors import DecompressError
+from zpack_tpu_torch.kernels import lz4_torch
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -46,6 +53,60 @@ def test_device_compressor_matches_mesh(B, kind):
     got = DeviceCompressor("cpu", block_size=B).compress(data)
     assert got == _jax_frame(data, B)
     assert lz4frame.decompress_frame(got) == data
+    assert jax_lz4frame.decompress_frame(got) == data
+
+
+def test_small_blocks_take_the_u16_wire_mode():
+    """Windows of 8 KiB or less ship one uint16 per byte, as the JAX step
+    does; the serializer takes that format as it comes."""
+    data = _data("mix", 4096)
+    steps = {B: list(DeviceCompressor("cpu", block_size=B)._steps_raw(data))
+             for B in (4096, 8192, 16384)}
+    assert [s[0][1] for s in steps.values()] == ["u16", "u16", "pair"]
+    lo, mode, host, est = steps[4096][0]
+    assert lo == 0 and len(host) == 1 and host[0].dtype == np.uint16
+    assert host[0].shape == (-(-len(data) // 4096), 4096)
+    mesh_step = next(MeshCompressor(make_mesh(jax.devices()[:1]), block_size=4096)._steps_raw(data))
+    assert mesh_step[1] == "u16"
+    assert np.array_equal(host[0], mesh_step[2][0][: len(host[0])])
+
+
+def test_tokenize_est_total_matches_mesh_on_full_steps():
+    """The JAX ``est_total`` counts its padding rows; on an input that
+    fills its steps (256 blocks of 4 KiB) the two agree, and on a shorter
+    one the port's equals the ``_est`` formula over the real rows."""
+    full = _mix(256 * 4096, seed=24)
+    mc = MeshCompressor(make_mesh(jax.devices()[:1]), block_size=4096)
+    dc = DeviceCompressor("cpu", block_size=4096)
+    assert mc.blocks_per_device_step == 256
+    assert dc.tokenize(full)[3] == mc.tokenize(full)[3]
+    short = full[: 5 * 4096 + 99]
+    _src, want_mlen, nb, want_est = mc.tokenize(short)
+    src, mlen, _nb, est = dc.tokenize(short)
+    hit = want_mlen[:nb] >= 4
+    assert est == int((4096 - np.where(hit, want_mlen[:nb], 0).sum(1) + 3 * hit.sum(1)).sum())
+    assert est != want_est  # the padding rows of zeros match themselves
+
+
+def test_entry_twin_matches_graft_entry():
+    forward, (sample,) = __graft_entry__.entry()
+    want = forward(sample)
+    port_forward, (port_sample,) = lz4_torch.entry("cpu")
+    assert np.array_equal(np.asarray(sample), port_sample.numpy())
+    got = port_forward(port_sample)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), np.asarray(w))
+    assert int((got[1] >= 4).sum()) > 100
+
+
+@pytest.mark.parametrize("n_words", [2, 4])
+@pytest.mark.parametrize("n", [0, 5, 12, 13, 255, 300, 16384, 20001])
+def test_compress_block_twin_matches_compress_block_tpu(n, n_words):
+    data = _mix(n, seed=n + 1)
+    got = lz4_torch.compress_block(data, "cpu", 2, n_words)
+    assert got == lz4_jax.compress_block_tpu(data, 2, n_words)
+    assert jax_lz4block.decompress_block(got, n) == data
 
 
 def test_frames_do_not_depend_on_step_size():
@@ -76,15 +137,13 @@ def test_extract_matches_jax_on_checksummed_independent_frames():
 
 def test_extract_rejects_linked_frames():
     fr = lz4frame.compress_frame(_mix(200000, seed=61), 1, block_indep=False)
-    with pytest.raises(DecompressError):
+    with pytest.raises(JaxDecompressError):
         jax_extract.decompress_lz4f_batched(fr)
     with pytest.raises(DecompressError, match="linked"):
         extract.decompress_lz4f_batched(fr, device="cpu")
 
 
 def test_device_compressor_requires_native_serializer(monkeypatch):
-    from zpack_tpu import native
-
     monkeypatch.setattr(native, "lz4_serialize_blocks_packed", lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="native LZ4 serializer"):
         DeviceCompressor("cpu", block_size=4096).compress(b"x" * 10000)

@@ -14,8 +14,9 @@ import zstandard
 from test_kernels import _huff_table_pair, _seq_heavy_corpora
 from zpack_tpu import native
 from zpack_tpu.codecs.zstd import fse as zfse, frame as zframe, huffman as H, seq as zseq
-from zpack_tpu.errors import DecompressError
+from zpack_tpu.errors import DecompressError as JaxDecompressError
 from zpack_tpu.kernels import fse_jax, huffman_jax
+from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import fse_torch, huffman_torch
 
 torch.set_num_threads(1)
@@ -131,7 +132,7 @@ def test_huffman_rejects_bad_streams_as_jax_does():
                      (([payload[:-1] + b"\x00"], [dt], [800]), "missing sentinel"):
         with pytest.raises(DecompressError, match=msg):
             huffman_torch.TorchHuffmanDecoder("cpu").decode_batch(*args)
-        with pytest.raises(DecompressError, match=msg):
+        with pytest.raises(JaxDecompressError, match=msg):
             huffman_jax.DeviceHuffmanDecoder().decode_batch(*args)
 
 
@@ -238,8 +239,9 @@ def test_fse_decoder_rejects_as_jax_does():
                      ((bs[3:], ll, of, ml, nb), "over-read"),
                      ((b"\x01" + bs, ll, of, ml, nb), "not fully consumed"),
                      ((bs, ll, zfse.build_rle_table(31), ml, nb), "offset code out of device range")):
-        for dec in (fse_torch.TorchSequenceDecoder("cpu"), fse_jax.DeviceSequenceDecoder()):
-            with pytest.raises(DecompressError, match=msg):
+        for dec, err in ((fse_torch.TorchSequenceDecoder("cpu"), DecompressError),
+                         (fse_jax.DeviceSequenceDecoder(), JaxDecompressError)):
+            with pytest.raises(err, match=msg):
                 dec.decode_batch([items[0], bad])
 
 

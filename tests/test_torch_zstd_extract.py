@@ -13,12 +13,10 @@ import zstandard
 from test_kernels import _seq_heavy_corpora
 from zpack_tpu import native
 from zpack_tpu.codecs.zstd import encode as zenc
-from zpack_tpu.constants import CompressionMethod
-from zpack_tpu.errors import DecompressError
+from zpack_tpu.errors import DecompressError as JaxDecompressError
 from zpack_tpu.parallel import extract as jax_extract
-from zpack_tpu.reader import Reader
-from zpack_tpu.writer import CompressOptions, Writer
-from zpack_tpu_torch import engine
+from zpack_tpu_torch import CompressionMethod, CompressOptions, Reader, Writer, codecs, engine
+from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from zpack_tpu_torch.parallel import extract
 
@@ -44,7 +42,7 @@ def _outcome(fn, *args):
     raises."""
     try:
         return fn(*args)
-    except DecompressError as e:
+    except (DecompressError, JaxDecompressError) as e:
         return f"DecompressError: {e}"
 
 
@@ -115,13 +113,13 @@ def test_corruption_sweep_raises_where_jax_raises():
     assert raised >= 8
 
 
-def test_reader_reads_zstd_entries_through_the_port(monkeypatch):
-    monkeypatch.delenv("ZPACK_TPU_ENGINE", raising=False)
+def test_reader_reads_zstd_entries_through_the_port():
     zstd = CompressOptions(CompressionMethod.ZSTD, 3)
     corpora = _corpora()
     entries = [("words.txt", corpora["words"][:150000], zstd),
                ("rand.bin", corpora["rand"], zstd),
                ("empty", b"", zstd)]
+    before = codecs.device_setting()
     engine.install("cpu")
     try:
         w = Writer.to_heap()
@@ -131,14 +129,16 @@ def test_reader_reads_zstd_entries_through_the_port(monkeypatch):
         for name, data, _ in entries:
             assert r.read_file(name) == data  # verifies the entry's XXH3
     finally:
-        engine.uninstall()
+        codecs.set_device(before)
     assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
 
 
 def test_codec_steps_down_only_on_decompress_error(monkeypatch):
     blob = _corpora()["strided"][:50000]
     frame = zstandard.ZstdCompressor(level=3).compress(blob)
-    codec = port_zstd.TorchZstdCodec("cpu")
+    monkeypatch.setattr(codecs, "_DEVICE", torch.device("cpu"))
+    codec = codecs.get_codec(int(CompressionMethod.ZSTD))
+    assert isinstance(codec, port_zstd.ZstdCodec)
 
     def fail(exc):
         def f(*args, **kwargs):
@@ -146,16 +146,16 @@ def test_codec_steps_down_only_on_decompress_error(monkeypatch):
         return f
 
     port_zstd.reset_fallbacks()
-    monkeypatch.setattr(port_zstd, "decompress_zstd_device", fail(RuntimeError("launch failed")))
+    monkeypatch.setattr(extract, "decompress_zstd_device", fail(RuntimeError("launch failed")))
     with pytest.raises(RuntimeError, match="launch failed"):
         codec.decompress(frame, len(blob))
     assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
-    monkeypatch.setattr(port_zstd, "decompress_zstd_device", fail(DecompressError("x")))
+    monkeypatch.setattr(extract, "decompress_zstd_device", fail(DecompressError("x")))
     assert codec.decompress(frame, len(blob)) == blob
     assert port_zstd.FALLBACKS == {"device_to_batched": 1, "batched_to_host": 0}
-    monkeypatch.setattr(port_zstd, "decompress_zstd_batched", fail(RuntimeError("no kernel")))
+    monkeypatch.setattr(extract, "decompress_zstd_batched", fail(RuntimeError("no kernel")))
     with pytest.raises(RuntimeError, match="no kernel"):
         codec.decompress(frame, len(blob))
-    monkeypatch.setattr(port_zstd, "decompress_zstd_batched", fail(DecompressError("y")))
+    monkeypatch.setattr(extract, "decompress_zstd_batched", fail(DecompressError("y")))
     assert codec.decompress(frame, len(blob)) == blob  # the host decoder
     assert port_zstd.FALLBACKS == {"device_to_batched": 3, "batched_to_host": 1}

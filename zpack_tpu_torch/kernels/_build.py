@@ -118,7 +118,7 @@ def lib() -> ctypes.CDLL:
             cdll = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             cdll.zp_lz4_tokenize.restype = i
-            cdll.zp_lz4_tokenize.argtypes = [p, i, i, i, i, p, p, p, p]
+            cdll.zp_lz4_tokenize.argtypes = [p, i, i, i, i, i, i, p, p, p, p, p]
             cdll.zp_lz4_replay.restype = i
             cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p]
             i64 = ctypes.c_longlong

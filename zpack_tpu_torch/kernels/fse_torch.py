@@ -42,8 +42,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zpack_tpu.codecs.zstd import seq as zseq
-from zpack_tpu.errors import DecompressError
+from ..codecs.zstd import seq as zseq
+from ..errors import DecompressError
 
 from . import _build
 from .huffman_torch import scatter_bits

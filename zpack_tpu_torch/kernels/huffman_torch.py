@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zpack_tpu.errors import CompressError, DecompressError
+from ..errors import CompressError, DecompressError
 
 from . import _build
 

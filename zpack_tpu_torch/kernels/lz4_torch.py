@@ -10,11 +10,17 @@ Counterpart of ``zpack_tpu/kernels/lz4_jax.py`` and
   (``zpack_tpu_torch/csrc/*.cu``) for a tensor on a GPU.  It never falls
   back: a build or launch error raises.
 
-The wire format between the tokenizer and the native serializer is the
-JAX package's "pair" format: position-ordered ``src`` uint16 (0 where there
-is no match) and ``code`` uint8 (``mlen - 3``, 0 = no match).
-:func:`from_jax_wire` turns any of the JAX tokenizers' outputs into the
-standard ``(src int32, -1 = none; mlen int32)`` tables.
+The match finder has one matcher and four last steps, the wire formats of
+the JAX package's tokenizers (:data:`MODES`): "pair" (``tokenize_block_resort``,
+position-ordered ``src`` uint16, 0 where there is no match, and ``code``
+uint8 = ``mlen - 3``, 0 = no match; what the native serializer takes at 64
+KiB blocks), "u16" (``tokenize_block_u16``, one uint16 ``src << 3 | code`` per
+byte, for windows of 8 KiB or less), "hash" (``tokenize_block_noscatter`` and
+the Pallas kernel: hash-ordered ``(pos, mlen << 17 | src)`` int32) and
+"scatter" (``tokenize_block``: ``src`` int32, -1 = none, and ``mlen`` int32).
+:func:`from_jax_wire` turns any of them into the standard ``(src int32, -1 =
+none; mlen int32)`` tables.  Every launch also returns the size estimate of
+its rows (:func:`est_plain`).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zpack_tpu.errors import DecompressError
+from ..codecs.lz4 import block as lz4block
+from ..errors import DecompressError
 
 from . import _build
 
@@ -34,8 +41,15 @@ LAST_LITERALS = 5
 CAPJ = 8
 _HASH_MUL = 2654435761
 
-#: launches of each hand-written kernel, counted by its wrapper only
-LAUNCHES = {"lz4_tokenize": 0, "lz4_replay": 0}
+#: the tokenizer's wire formats, in the order of the kernel's mode argument
+MODES = ("pair", "u16", "hash", "scatter")
+
+#: launches of each hand-written kernel, counted by its wrapper only: the
+#: tokenizer once per launch under its mode's name ("pair" is the main
+#: path's ``lz4_tokenize``).  Every tokenizer launch also reduces its rows'
+#: size estimate, so the estimate's launches are the sum of the four modes'
+LAUNCHES = {"lz4_tokenize": 0, "lz4_tokenize_u16": 0, "lz4_tokenize_hash": 0,
+            "lz4_tokenize_scatter": 0, "lz4_replay": 0}
 
 
 def reset_launches() -> None:
@@ -48,31 +62,54 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _check_tokenize(blocks: torch.Tensor, depth: int, capj: int) -> None:
+def _check_tokenize(blocks: torch.Tensor, depth: int, capj: int, mode: str = "pair",
+                    dict_pad: int = 0) -> None:
     if blocks.dtype != torch.uint8 or blocks.dim() != 2:
-        raise ValueError("blocks must be a (nb, B) uint8 tensor")
-    if not 1 <= blocks.shape[1] <= 65536:
-        raise ValueError(f"block size {blocks.shape[1]} outside 1..65536")
+        raise ValueError("blocks must be a (nb, W) uint8 tensor")
+    W = blocks.shape[1]
+    if not 1 <= W <= 65536:
+        raise ValueError(f"window {W} outside 1..65536")
     if not 1 <= depth <= 64:
         raise ValueError(f"depth {depth} outside 1..64")
     if not MIN_MATCH <= capj <= 16:
         raise ValueError(f"capj {capj} outside 4..16")
+    if mode not in MODES:
+        raise ValueError(f"unknown wire mode {mode!r}")
+    if not 0 <= dict_pad < W:
+        raise ValueError(f"dict_pad {dict_pad} outside 0..{W - 1}")
+    if mode == "u16" and capj > 10:
+        raise ValueError(f"mode 'u16' packs mlen - 3 into 3 bits: capj {capj} > 10")
+    if mode == "u16" and W > 8192:
+        raise ValueError(f"mode 'u16' packs src into 13 bits: window {W} > 8192")
+    if mode == "hash" and dict_pad:
+        raise ValueError("mode 'hash' takes no dictionary window")
 
 
-def tokenize_plain(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ):
-    """LZ4 match finding for a batch of blocks, in plain PyTorch.
+def tokenize_plain(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
+                   mode: str = "pair", dict_pad: int = 0):
+    """LZ4 match finding for a batch of windows, in plain PyTorch.
 
-    For each block of B bytes (zero past B): hash every 4-byte window,
+    Each row of ``blocks`` is a window of W bytes (zero past W): ``dict_pad``
+    bytes of a shared dictionary, then the block.  Hash every 4-byte window,
     sort the keys ``(h << 16) | p``, take the ``depth`` nearest earlier
     positions with the same hash as candidates, score each by its leading
     equal bytes capped at ``capj`` (under 4 counts as 0; the strictly
     longest wins, so on a tie the nearest), then apply the LZ4 end-of-block
-    rules.  Same function as ``lz4_jax.tokenize_block_resort`` at capj=8
-    and ``lz4_pallas.tokenize_blocks_device`` + ``unsort_host`` at 16.
+    rules at the end of the window.  The last step is the wire format
+    ``mode``; all but "hash" keep the data positions ``p >= dict_pad`` only,
+    at column ``p - dict_pad``, with ``src`` relative to the window start:
 
-    Returns the pair wire format: position-ordered ``(src uint16,
-    code uint8)``, each (nb, B)."""
-    _check_tokenize(blocks, depth, capj)
+    * ``"pair"``: ``(src uint16, code uint8)``, each (nb, W - dict_pad); same
+      function as ``lz4_jax.tokenize_block_resort`` at capj=8;
+    * ``"u16"``: ``(tok uint16,)``, ``src << 3 | (mlen - 3)``, 0 = no match
+      (W <= 8192, capj <= 10): ``lz4_jax.tokenize_block_u16``;
+    * ``"hash"``: hash-ordered ``(pos int32, mlen << 17 | (src & 0x1FFFF)
+      int32)``, each (nb, W), ``src`` -1 where there is no match:
+      ``lz4_jax.tokenize_block_noscatter`` at ``capj = 4 * n_words``, and
+      ``lz4_pallas.tokenize_blocks_device`` at 16;
+    * ``"scatter"``: ``(src int32, -1 = none; mlen int32, 0 = none)``:
+      ``lz4_jax.tokenize_block`` at capj=16."""
+    _check_tokenize(blocks, depth, capj, mode, dict_pad)
     nb, B = blocks.shape
     dev = blocks.device
     bp = torch.cat([blocks, blocks.new_zeros((nb, capj + 4))], dim=1)
@@ -106,35 +143,85 @@ def tokenize_plain(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ):
     ok = (best_len >= MIN_MATCH) & (ps < B - MFLIMIT) & (ps > 0)
     ml = torch.minimum(best_len, (B - LAST_LITERALS) - ps)
     ok &= ml >= MIN_MATCH
-    src = torch.empty_like(ps).scatter_(1, ps, torch.where(ok, best_src, 0))
-    code = torch.empty_like(ps).scatter_(1, ps, torch.where(ok, ml - 3, 0))
-    return src.to(torch.uint16), code.to(torch.uint8)
+    ml = torch.where(ok, ml, 0)
+    if mode == "hash":
+        packed = (ml << 17) | (torch.where(ok, best_src, -1) & 0x1FFFF)
+        return ps.to(torch.int32), packed.to(torch.int32)
+    # int64 throughout: the CPU has no uint16 scatter
+    src = torch.empty_like(ps).scatter_(1, ps, torch.where(ok, best_src, 0))[:, dict_pad:]
+    ml = torch.empty_like(ps).scatter_(1, ps, ml)[:, dict_pad:]
+    code = torch.where(ml > 0, ml - 3, 0)
+    if mode == "pair":
+        return src.to(torch.uint16), code.to(torch.uint8)
+    if mode == "u16":
+        return (((src << 3) | code).to(torch.uint16),)
+    return torch.where(ml > 0, src, -1).to(torch.int32), ml.to(torch.int32)
 
 
-def tokenize(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ):
-    """:func:`tokenize_plain` on the CPU; on a GPU, the CUDA match finder
-    (``csrc/lz4_tokenize.cu``).  Same inputs, same outputs."""
+def est_plain(arrays, mode: str) -> torch.Tensor:
+    """The size estimate of ``pipeline._step_fn.local_step`` (``_est``) from
+    a tokenizer's outputs in wire format ``mode``: over the rows' data
+    positions, ``sum(B - sum(mlen) + 3 * count(mlen >= 4))``, B the row
+    length: literals plus three bytes a match.  A (1,) int64 tensor.
+
+    The JAX step also counts its padding rows (``_steps_raw`` pads every
+    step to a fixed count of zero rows, and a zero row matches itself); this
+    function counts the rows it is given, and the port has no padding rows.
+    The two agree on an input whose block count fills the JAX steps."""
+    a = arrays[-1].to(torch.int64)
+    if mode == "hash":
+        mlen = a >> 17
+    elif mode == "scatter":
+        mlen = a
+    else:
+        code = a & 7 if mode == "u16" else a
+        mlen = torch.where(code > 0, code + 3, 0)
+    hit = mlen >= MIN_MATCH
+    est = a.numel() - torch.where(hit, mlen, 0).sum() + 3 * hit.sum()
+    return est.reshape(1)
+
+
+_OUT_DTYPES = {"pair": (torch.uint16, torch.uint8), "u16": (torch.uint16,),
+               "hash": (torch.int32, torch.int32), "scatter": (torch.int32, torch.int32)}
+
+
+def tokenize_est(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
+                 mode: str = "pair", dict_pad: int = 0):
+    """``(arrays, est)``: :func:`tokenize_plain` and :func:`est_plain` on the
+    CPU; on a GPU, one launch of the CUDA match finder
+    (``csrc/lz4_tokenize.cu``), which writes the wire format ``mode`` and
+    reduces the estimate in its own body.  Same inputs, same outputs."""
     if blocks.device.type == "cpu":
-        return tokenize_plain(blocks, depth, capj)
-    _check_tokenize(blocks, depth, capj)
+        arrays = tokenize_plain(blocks, depth, capj, mode, dict_pad)
+        return arrays, est_plain(arrays, mode)
+    _check_tokenize(blocks, depth, capj, mode, dict_pad)
     if blocks.device.type != "cuda" or not blocks.is_contiguous():
         raise ValueError("tokenize takes a contiguous CPU or CUDA tensor")
-    nb, B = blocks.shape
-    src = torch.empty((nb, B), dtype=torch.uint16, device=blocks.device)
-    code = torch.empty((nb, B), dtype=torch.uint8, device=blocks.device)
+    nb, W = blocks.shape
+    cols = W if mode == "hash" else W - dict_pad
+    arrays = tuple(torch.empty((nb, cols), dtype=t, device=blocks.device)
+                   for t in _OUT_DTYPES[mode])
+    est = torch.zeros(1, dtype=torch.int64, device=blocks.device)
     if nb == 0:
-        return src, code
-    np2 = 1 << (B - 1).bit_length()
+        return arrays, est
+    np2 = 1 << (W - 1).bit_length()
     keys = torch.empty((nb, np2), dtype=torch.int32, device=blocks.device)
     lib = _build.lib()
     with torch.cuda.device(blocks.device):
         rc = lib.zp_lz4_tokenize(
-            blocks.data_ptr(), nb, B, depth, capj, keys.data_ptr(),
-            src.data_ptr(), code.data_ptr(),
+            blocks.data_ptr(), nb, W, dict_pad, depth, capj, MODES.index(mode),
+            keys.data_ptr(), arrays[0].data_ptr(),
+            arrays[1].data_ptr() if len(arrays) > 1 else None, est.data_ptr(),
             torch.cuda.current_stream(blocks.device).cuda_stream)
     _build.check(rc, "lz4_tokenize")
-    LAUNCHES["lz4_tokenize"] += 1
-    return src, code
+    LAUNCHES["lz4_tokenize" if mode == "pair" else f"lz4_tokenize_{mode}"] += 1
+    return arrays, est
+
+
+def tokenize(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
+             mode: str = "pair", dict_pad: int = 0):
+    """The wire arrays of :func:`tokenize_est` without the estimate."""
+    return tokenize_est(blocks, depth, capj, mode, dict_pad)[0]
 
 
 def unpack_resort_host(src16: np.ndarray, code: np.ndarray):
@@ -233,8 +320,9 @@ def from_jax_wire(mode: str, arrays):
     * ``"pair"``: ``(src u16, code u8)`` (``tokenize_block_resort``, and
       this module's :func:`tokenize`);
     * ``"u16"``: one u16 token ``src << 3 | code`` (``tokenize_block_u16``);
-    * ``"pallas"``: hash-ordered ``(pos, mlen << 17 | src)``
-      (``tokenize_blocks_device``, ``tokenize_block_noscatter``)."""
+    * ``"hash"``: hash-ordered ``(pos, mlen << 17 | src)``
+      (``tokenize_blocks_device``, ``tokenize_block_noscatter``; the
+      ``unsort_host`` of ``lz4_pallas``)."""
     if mode == "pair":
         return unpack_resort_host(*arrays)
     if mode == "u16":
@@ -243,7 +331,7 @@ def from_jax_wire(mode: str, arrays):
         code = v & 7
         mlen = np.where(code > 0, code + 3, 0).astype(np.int32)
         return np.where(code > 0, v >> 3, -1).astype(np.int32), mlen
-    if mode == "pallas":
+    if mode == "hash":
         pos, packed = (np.asarray(a) for a in arrays)
         out = np.empty_like(packed)
         np.put_along_axis(out, pos.astype(np.int64), packed, axis=-1)
@@ -251,6 +339,60 @@ def from_jax_wire(mode: str, arrays):
         src = np.where(mlen == 0, -1, out & 0x1FFFF).astype(np.int32)
         return src, mlen
     raise ValueError(f"unknown wire mode {mode!r}")
+
+
+def serialize_block_host(data: bytes, src: np.ndarray, mlen: np.ndarray,
+                         capj: int = 16) -> bytes:
+    """Assemble the LZ4 block from the device match tables: vectorized
+    fixpoint parse and extension (:func:`resolve_matches_host`), then
+    vectorized byte serialization.  Copy of ``lz4_jax.serialize_block_host``."""
+    n = len(data)
+    arr = np.frombuffer(data, dtype=np.uint8)
+    mps, mss, mls = resolve_matches_host(arr, src, mlen, n, n - LAST_LITERALS, capj)
+    return lz4block.serialize_sequences_np(data, mps, mss, mls)
+
+
+def compress_block(data: bytes, device, depth: int = 2, n_words: int = 2) -> bytes:
+    """One LZ4 block, matcher on ``device``, parse and serialization on the
+    host: the twin of ``lz4_jax.compress_block_tpu``, with the same bytes.
+    The input is zero-padded to a multiple of 128 and at least 256 bytes and
+    tokenized in the "hash" wire format at cap ``4 * n_words``; inputs under
+    13 bytes go to the host encoder."""
+    n = len(data)
+    if n < MFLIMIT + 1:
+        return lz4block.compress_block(data)
+    B = max(256, -(-n // 128) * 128)
+    padded = np.zeros((1, B), dtype=np.uint8)
+    padded[0, :n] = np.frombuffer(data, dtype=np.uint8)
+    wire = tokenize(torch.from_numpy(padded).to(device), depth, 4 * n_words, mode="hash")
+    src, mlen = from_jax_wire("hash", [t[0].cpu().numpy() for t in wire])
+    if n != B:
+        # padding may have created or extended matches past n: re-clamp
+        posa = np.arange(B)
+        mlen = np.minimum(mlen, np.maximum(n - LAST_LITERALS - posa, 0))
+        mlen = np.where(posa >= max(n - MFLIMIT, 0), 0, mlen)
+        mlen = np.where(mlen < MIN_MATCH, 0, mlen)
+    return serialize_block_host(data, src, mlen, 4 * n_words)
+
+
+def entry(device):
+    """``(forward, (sample,))``: the twin of ``__graft_entry__.entry()``, the
+    forward step of the flagship compute path on ``device``.  ``forward``
+    tokenizes one block (a 1-D uint8 tensor) at depth 2 and cap 16 and
+    returns the position-ordered ``(src int32, -1 = none; mlen int32)`` of
+    ``lz4_jax.tokenize_block``; ``sample`` is the same seeded 16 KiB block."""
+
+    def forward(data: torch.Tensor):
+        src, mlen = tokenize(data[None, :], 2, 16, mode="scatter")
+        return src[0], mlen[0]
+
+    rng = np.random.default_rng(0)
+    sample = np.where(
+        rng.random(16384) < 0.7,
+        np.tile(np.frombuffer(b"zpack tpu sample", dtype=np.uint8), 1024),
+        rng.integers(0, 256, 16384),
+    ).astype(np.uint8)
+    return forward, (torch.from_numpy(sample).to(device),)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,7 @@ on int64 is arithmetic.  The state that crosses between the packages is the
 accumulator after a stream's whole stripes, ``(n, 8)`` int64 holding u64
 bits; :func:`acc_from_jax` turns the JAX kernels' u32 halves into it.
 
-The constants and the host reference come from ``zpack_tpu.codecs.xxh3``,
-which imports no jax.
+The constants and the host reference come from ``codecs/xxh3.py``.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from zpack_tpu.codecs import xxh3 as H
+from ..codecs import xxh3 as H
 
 from . import _build
 

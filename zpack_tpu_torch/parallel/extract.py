@@ -25,11 +25,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from zpack_tpu.codecs.lz4 import frame as lz4f
-from zpack_tpu.codecs.xxh3 import XXH32State, XXH64State, xxh32
-from zpack_tpu.codecs.zstd import frame as zframe, seq as zseq
-from zpack_tpu.errors import DecompressError
-from zpack_tpu.utils.observe import metrics
+from ..codecs.lz4 import frame as lz4f
+from ..codecs.xxh3 import XXH32State, XXH64State, xxh32
+from ..codecs.zstd import frame as zframe, seq as zseq
+from ..errors import DecompressError
+from ..utils.observe import metrics
 
 from ..kernels import fse_torch, lz4_torch
 from ..kernels.huffman_torch import TorchHuffmanDecoder

@@ -2,8 +2,10 @@
 
 Counterpart of ``zpack_tpu/parallel/pipeline.py`` (``MeshCompressor``) on
 one device with no mesh: the input is padded into ``block_size`` blocks,
-each step of blocks goes through the tokenizer kernel, and the pair wire
-format comes back to the host.
+each step of blocks goes through the tokenizer kernel, and its wire format
+comes back to the host with the step's size estimate.  The wire format
+mirrors ``_step_fn``: "u16" (one uint16 per byte) when the window, the
+dictionary plus the block, is 8 KiB or less, else "pair".
 
 * ``compress``: the native serializer writes independent-block lz4f frames
   from it.  On a GPU the steps overlap: step s+1 is copied in and tokenized
@@ -12,7 +14,9 @@ format comes back to the host.
   match tables into sequences, the Huffman literal streams and the FSE
   sequence streams of all blocks are encoded in one launch each
   (``kernels/huffman_torch.py``, ``kernels/fse_torch.py``), the host
-  assembles the frame.
+  assembles the frame.  With a shared dictionary the dictionary is copied
+  to the device once, rides the match window of every block, and each block
+  becomes a frame of its own that references it, encoded on the host.
 
 Both frames are byte-identical to the JAX engine's, whatever the step size.
 """
@@ -26,10 +30,11 @@ import struct
 import numpy as np
 import torch
 
-from zpack_tpu import native
-from zpack_tpu.codecs.lz4 import frame as lz4frame
-from zpack_tpu.codecs.zstd import encode as zenc
-from zpack_tpu.utils.observe import metrics
+from .. import native
+from ..codecs.lz4 import frame as lz4frame
+from ..codecs.zstd import encode as zenc
+from ..codecs.zstd.dict import as_dictionary
+from ..utils.observe import metrics
 
 from ..kernels import fse_torch, huffman_torch, lz4_torch
 
@@ -57,30 +62,57 @@ class DeviceCompressor:
         self.depth = 2 if level <= 2 else 8
         self.blocks_per_step = max(1, self.BYTES_PER_STEP // block_size)
 
-    def _launch(self, chunk: np.ndarray):
-        """Enqueue one step: copy in, tokenize, copy the pair wire format
-        out.  Returns the host tensors and the event that marks them ready
-        (None on the CPU, where the step ran synchronously)."""
+    def _mode(self, dict_pad: int = 0) -> str:
+        """The step's wire format, the choice of ``_step_fn``: "u16" for a
+        window of 8 KiB or less, else "pair"."""
+        window = dict_pad + self.block_size
+        if window <= 8192:
+            return "u16"
+        if window <= 65536:
+            return "pair"
+        raise ValueError(
+            f"dict window {window} too large for the device tokenizer "
+            f"(dict + block_size must be <= 65536)")
+
+    def _launch(self, chunk: np.ndarray, mode: str, dict_dev: torch.Tensor | None):
+        """Enqueue one step: copy in, build the windows (the dictionary
+        first), tokenize, copy the wire format of the data positions and the
+        step's estimate out.  Returns the host tensors, the estimate last,
+        and the event that marks them ready (None on the CPU, where the step
+        ran synchronously)."""
         blocks = torch.from_numpy(chunk)
-        if self.device.type != "cuda":
-            return lz4_torch.tokenize(blocks.to(self.device), self.depth), None
-        blocks = blocks.pin_memory().to(self.device, non_blocking=True)
-        src, code = lz4_torch.tokenize(blocks, self.depth)
-        host = (torch.empty(src.shape, dtype=src.dtype, pin_memory=True),
-                torch.empty(code.shape, dtype=code.dtype, pin_memory=True))
-        host[0].copy_(src, non_blocking=True)
-        host[1].copy_(code, non_blocking=True)
+        cuda = self.device.type == "cuda"
+        blocks = (blocks.pin_memory().to(self.device, non_blocking=True) if cuda
+                  else blocks.to(self.device))
+        dict_pad = 0
+        if dict_dev is not None:
+            dict_pad = dict_dev.numel()
+            blocks = torch.cat([dict_dev.expand(len(blocks), dict_pad), blocks], dim=1)
+        arrays, est = lz4_torch.tokenize_est(blocks, self.depth, lz4_torch.CAPJ, mode, dict_pad)
+        if not cuda:
+            return (*arrays, est), None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in (*arrays, est))
+        for h, t in zip(host, (*arrays, est)):
+            h.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
         return host, done
 
-    def _steps_raw(self, data: bytes):
-        """Yield (first_block, (src u16, code u8)) per step, in order, with
-        step s+1 enqueued before step s is handed to the caller."""
+    def _steps_raw(self, data: bytes, dictionary: bytes | None = None):
+        """Yield (first_block, mode, wire arrays, est) per step, in order,
+        with step s+1 enqueued before step s is handed to the caller.  The
+        wire arrays are ``(src u16, code u8)`` in "pair" mode and ``(tok
+        u16,)`` in "u16" mode, each (blocks of the step, B).  ``dictionary``
+        is copied to the device once."""
         B = self.block_size
         n = len(data)
         nb = max(1, math.ceil(n / B))
         flat = np.frombuffer(data, dtype=np.uint8)
+        mode = self._mode(len(dictionary) if dictionary else 0)
+        dict_dev = None
+        if dictionary:
+            dict_dev = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8).to(self.device)
         pending = None
         for lo in range(0, nb, self.blocks_per_step):
             hi = min(nb, lo + self.blocks_per_step)
@@ -88,7 +120,7 @@ class DeviceCompressor:
             seg = flat[lo * B : min(n, hi * B)]
             chunk.reshape(-1)[: len(seg)] = seg
             with metrics.phase("torch.dispatch", len(seg)):
-                launched = (lo, self._launch(chunk))
+                launched = (lo, mode, self._launch(chunk, mode, dict_dev))
             if pending is not None:
                 yield self._wait(pending)
             pending = launched
@@ -96,49 +128,57 @@ class DeviceCompressor:
 
     @staticmethod
     def _wait(pending):
-        """Wait for a step launched by :meth:`_launch`; its host arrays."""
-        lo, (host, done) = pending
+        """Wait for a step launched by :meth:`_launch`; its host arrays and
+        its estimate."""
+        lo, mode, (host, done) = pending
         with metrics.phase("torch.d2h", host[0].numel()):
             if done is not None:
                 done.synchronize()
-            return lo, tuple(t.cpu().numpy() for t in host)
+            *arrays, est = (t.cpu().numpy() for t in host)
+            return lo, mode, tuple(arrays), int(est[0])
 
     def compress(self, data: bytes) -> bytes:
         """One lz4f frame of independent blocks: device tokenization, host
-        serialization by ``native.lz4_serialize_blocks_packed``."""
+        serialization by ``native.lz4_serialize_blocks_packed``, which takes
+        the "pair" and the "u16" wire format as they come."""
         data = bytes(data)
         B = self.block_size
         n = len(data)
         # B <= 64 KiB, so the declared frame block size is the smallest, 64 KiB
         out = bytearray(lz4frame._header(64 << 10, True, False, None))
-        for lo, host in self._steps_raw(data):
+        for lo, mode, host, _est in self._steps_raw(data):
             seg = data[lo * B : min(n, (lo + len(host[0])) * B)]
             with metrics.phase("torch.serialize", len(seg)):
-                body = native.lz4_serialize_blocks_packed(seg, "pair", host, B)
+                body = native.lz4_serialize_blocks_packed(seg, mode, host, B)
             if body is None:
                 raise RuntimeError(
-                    "the native LZ4 serializer is unavailable (zpack_tpu.native "
+                    "the native LZ4 serializer is unavailable (native.py "
                     "could not build or load its library)")
             out += body
         out += struct.pack("<I", 0)
         return bytes(out)
 
-    def tokenize(self, data: bytes):
-        """``(src, mlen, nb)``: the position-ordered int32 match tables of the
-        ``nb`` blocks, ``(nb, B)`` each (``src`` -1 where there is no match).
-        The tables of ``MeshCompressor.tokenize`` without its mesh padding
-        rows and its size estimate."""
+    def tokenize(self, data: bytes, dictionary: bytes | None = None):
+        """``(src, mlen, nb, est_total)``: the position-ordered int32 match
+        tables of the ``nb`` blocks, ``(nb, B)`` each (``src`` -1 where there
+        is no match; with ``dictionary``, relative to the start of the
+        window, the dictionary's first byte), and the sum of the steps' size
+        estimates.  The tables of ``MeshCompressor.tokenize`` without its
+        mesh padding rows, which its ``est_total`` counts and this one does
+        not (``lz4_torch.est_plain``)."""
         data = bytes(data)
         B = self.block_size
         nb = max(1, math.ceil(len(data) / B))
         src = np.empty((nb, B), dtype=np.int32)
         mlen = np.empty((nb, B), dtype=np.int32)
-        for lo, host in self._steps_raw(data):
+        est_total = 0
+        for lo, mode, host, est in self._steps_raw(data, dictionary):
             with metrics.phase("torch.host_unpack", host[0].size):
-                src_s, mlen_s = lz4_torch.unpack_resort_host(*host)
+                src_s, mlen_s = lz4_torch.from_jax_wire(mode, host)
             src[lo:lo + len(src_s)] = src_s
             mlen[lo:lo + len(mlen_s)] = mlen_s
-        return src, mlen, nb
+            est_total += est
+        return src, mlen, nb, est_total
 
     def compress_zstd(self, data: bytes, level: int = 3, dictionary=None,
                       device_entropy: bool | None = None) -> bytes:
@@ -151,11 +191,14 @@ class DeviceCompressor:
         ``device_entropy`` (default: on unless ``ZPACK_TPU_NO_DEVICE_ENTROPY``
         is set) the literal Huffman streams and the FSE sequence streams of
         all blocks are encoded on ``self.device``; without it, by the host
-        encoders of ``codecs.zstd``."""
+        encoders of ``codecs.zstd``.
+
+        With ``dictionary`` (a ``ZstdDictionary``, a dictionary blob or raw
+        content) the dictionary rides every block's match window on the
+        device and each block becomes an independent frame that references
+        it, so offsets stay local to the window."""
         if dictionary is not None:
-            raise NotImplementedError(
-                "compress_zstd with a dictionary is not ported yet "
-                "(ROADMAP Queue 1 item 8, the shared-dictionary path)")
+            return self._compress_zstd_dict(data, level, dictionary)
         if device_entropy is None:
             device_entropy = not os.environ.get("ZPACK_TPU_NO_DEVICE_ENTROPY")
         data = bytes(data)
@@ -163,7 +206,7 @@ class DeviceCompressor:
         n = len(data)
         if n == 0:
             return zenc.compress(b"", level)
-        src, mlen, nb = self.tokenize(data)
+        src, mlen, nb, _est = self.tokenize(data)
         # pass 1: device match tables -> sequence tuples + literal runs
         all_seqs: list[list] = []
         all_lits: list[bytes] = []
@@ -246,6 +289,57 @@ class DeviceCompressor:
                     out += body
                 else:
                     out += struct.pack("<I", last | (0 << 1) | (cl << 3))[:3]
+                    out += chunk
+        return bytes(out)
+
+    def _compress_zstd_dict(self, data: bytes, level: int, dictionary) -> bytes:
+        """Shared-dictionary path, the port of
+        ``MeshCompressor._compress_zstd_dict``: the dictionary on the device,
+        one dictionary-referencing frame per block (concatenated frames are
+        valid zstd; each decodes against the same dictionary).  The entropy
+        stage runs on the host, as in the JAX package."""
+        zd = as_dictionary(dictionary)
+        d = len(zd.content)
+        B = self.block_size
+        data = bytes(data)
+        n = len(data)
+        if n == 0:
+            return zenc.compress(b"", level, dictionary=zd)
+        src, mlen, nb, _est = self.tokenize(data, zd.content)  # raises if d + B > 65536
+        wl = max(17, (d + B).bit_length())
+        out = bytearray()
+        posa = np.arange(B)
+        zeros_d = np.zeros(d, dtype=np.int64)
+        with metrics.phase("torch.zstd_dict_encode", n):
+            for i in range(nb):
+                chunk = data[i * B:(i + 1) * B]
+                cl = len(chunk)
+                arr = np.frombuffer(zd.content + chunk, dtype=np.uint8)
+                # clamp device results (computed over the zero-padded tail
+                # block) to the real chunk length; zstd lets matches run to
+                # the block end, so the only rule is staying inside [0, cl)
+                ml = np.minimum(mlen[i], np.maximum(cl - posa, 0))
+                ml = np.where(ml < 4, 0, ml)
+                src_full = np.concatenate([zeros_d, src[i].astype(np.int64)])
+                ml_full = np.concatenate([zeros_d, ml.astype(np.int64)])
+                mps, mss, mls = lz4_torch.resolve_matches_host(
+                    arr, src_full, ml_full, d + cl, d + cl, lz4_torch.CAPJ)
+                lit_starts = np.concatenate([[d], mps + mls])
+                seqs = [(int(ls), int(p - ls), int(p), int(j), int(l))
+                        for ls, p, j, l in zip(lit_starts[:-1], mps, mss, mls)]
+                seqs.append((int(lit_starts[-1]), d + cl - int(lit_starts[-1]),
+                             None, None, None))
+                rep = list(zd.rep)
+                # fresh per block: each block is its own frame
+                enc_tabs = zd.encode_tables()
+                ent = zenc.EntropyState(*enc_tabs) if enc_tabs is not None else None
+                body = zenc._encode_block_body(arr, d, d + cl, seqs, rep, ent=ent)
+                out += zenc._frame_header(cl, wl, dict_id=zd.dict_id, min_window=d + cl)
+                if body is not None and len(body) < cl:
+                    out += struct.pack("<I", 1 | (2 << 1) | (len(body) << 3))[:3]
+                    out += body
+                else:
+                    out += struct.pack("<I", 1 | (0 << 1) | (cl << 3))[:3]
                     out += chunk
         return bytes(out)
 

@@ -8,7 +8,10 @@
 2. holds the LZ4 match finder kernel against its plain PyTorch version on
    256 blocks of 64 KiB, at depth 2 and 8 and match caps 8 and 16 (exact);
 3. holds the sequence replay kernel against its plain version on the
-   replay batch of the main path's frames and on RLE-heavy blocks (exact);
+   replay batch of the main path's frames, on RLE-heavy blocks and on the
+   adversarial batches of ``kernels/replay_cases.py`` (copy chains, sources
+   at chunk edges, literal-only segments, every row shape; exact, and the
+   kernel's error word must stay clear: the wrapper raises on it);
 4. XXH3: holds the many-stream kernel against its plain version and the
    native host hash on 128 streams of 512 KiB and on 10,011 streams of
    241..65536 bytes, and the single-stream kernel on the 64 MiB corpus and
@@ -67,9 +70,11 @@
 outputs (each once) over the card's memory rate, and its operations over
 their peak rate.  Integer operations are counted at the card's float32 rate
 outside the tensor cores; a kernel whose work is a sequential chain per
-stream or block (the Huffman decoder, the FSE coders, the repeat offsets) is
-bound by its longest chain's steps at ``CHAIN_STEP_NS`` a step, one
-dependent table load from shared memory or L1 and a few integer operations.
+stream or block (the Huffman decoder, the FSE coders) is bound by its
+longest chain's steps at ``CHAIN_STEP_NS`` a step, one dependent table load
+from shared memory or L1 and a few integer operations.  The repeat offsets
+are no chain (their maps compose, and the kernels scan them), so they are
+bound by their bytes: three or four int32 a sequence.
 No single PyTorch call computes any of these functions, so ``library_ms``
 is null throughout.
 
@@ -234,10 +239,13 @@ def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz
     _, comp_blocks, bounds, _ = extract.walk_lz4f(frame)
     rle = [b"a" * 5000 + b"bc" * 2000, b"x" * 65536, b"ab" * 32768,
            (b"0123456789abcdef" * 4096)[:65536]]
+    from zpack_tpu_torch.kernels import replay_cases
+
     batches = {
         "main-path frames": lz4_torch.build_batch(comp_blocks, bounds),
         "rle": lz4_torch.build_batch([lz4block.compress_block(r) for r in rle],
                                      [len(r) for r in rle]),
+        **{f"adversarial: {k}": b for k, b in replay_cases.cases().items()},
     }
     err = 0
     result = {}
@@ -628,8 +636,8 @@ def recording_kernels(modules: dict):
 
 def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modules) -> dict:
     """Record each kernel's inputs on a first run of the device path, then
-    hold each kernel against its plain version on them and time both (the
-    replay, which takes some 100 ms, 3 times; the others 10)."""
+    hold each kernel against its plain version on them and time both (each
+    kernel 10 times, its plain version once)."""
     with recording_kernels(modules) as calls:
         t0 = time.perf_counter()
         out = extract.decompress_zstd_device(comp, len(corpus), device=device)
@@ -652,7 +660,7 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
               f"to plain (max_abs_err {err})")
         if err:
             raise AssertionError(f"{name} kernel != plain on the zstd extract inputs")
-        ms = cuda_ms(lambda: kernel(*args, **kwargs), 3 if name == "lz4_replay" else 10)
+        ms = cuda_ms(lambda: kernel(*args, **kwargs), 10)
         plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 1, warmup=False)
         print(f"{name} (zstd extract): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         ops = chain = 0
@@ -660,11 +668,19 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
             chain = int(args[1][:, 3].max())  # the longest stream's symbols
         elif name == "lz4_replay":
             ops = tensor_bytes(got)  # one copy a byte
-        else:  # one walk of the longest block's sequences
-            seq_off = args[2] if name in ("fse_decode", "rep_apply") else args[3]
-            chain = int((seq_off[1:] - seq_off[:-1]).max())
+        elif name == "fse_decode":  # one walk of the longest block's sequences
+            chain = int((args[2][1:] - args[2][:-1]).max())
+        else:  # rep_totals, rep_apply: a scan, some 20 integer operations a map
+            ops = 20.0 * args[0].numel()
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      **bound(tensor_bytes(args, got), ops, chain)}
+    # the assembly between the decode kernels and the replay is torch ops:
+    # it reads the three flat sequence tables and writes the replay's four
+    # (F, SB) segment tables
+    seg_tables = calls["lz4_replay"][0][0][1:5]
+    moved = 3 * tensor_bytes(calls["rep_apply"][0][0][0]) + tensor_bytes(seg_tables)
+    print(f"zstd_assemble (torch ops): segment tables {tuple(seg_tables[0].shape)}, "
+          f"{moved} bytes read and written, bound {bound(moved)['bound_ms']:.4f} ms (bytes)")
     return res
 
 

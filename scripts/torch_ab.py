@@ -1,0 +1,71 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the PyTorch/CUDA port on one GPU, in one run.
+
+    python3 scripts/torch_ab.py PARENT_DIR CHANGE_DIR
+
+Runs parent, change, change, parent, each in a process of its own with its
+own build of the kernels: two checkouts are compared only inside one run on
+one card.  Each side drives, through its own ``chip_smoke.py``'s phases,
+
+* the sequence replay against its plain version on the main path's LZ4
+  rows (kernel ms, plain ms),
+* the LZ4 archive round trip of the 64 MiB corpus, twice,
+* ``Reader.read_file`` of the corpus as one zstd entry, four times, with
+  the phases of the last two.
+
+Prints the card's name and power limit first, then each side's lines as
+the phases print them.  Needs a CUDA GPU; exits non-zero if a side fails.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+SIDE = r'''
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from zpack_tpu_torch.codecs.lz4 import block as lz4block
+from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch
+from zpack_tpu_torch.parallel import extract
+from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
+
+dev = torch.device("cuda")
+corpus = cs.build_corpus(cs.CORPUS_BYTES)
+cs.phase_replay(corpus, dev, lz4_torch, extract, DeviceCompressor, lz4block)
+cs.phase_main_path(corpus, dev, lz4_torch)
+modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch, "rep_totals": fse_torch,
+           "rep_apply": fse_torch, "lz4_replay": lz4_torch}
+zbuf, zcomp = cs.write_zstd_entry(corpus, dev, extract)
+cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
+cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
+'''
+
+KEEP = ("replay (", "main path rep", "zstd extract main path rep", "zstd extract main path phases")
+
+
+def main() -> int:
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent, change = sys.argv[1:]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    for name, tree in (("parent", parent), ("change", change), ("change", change),
+                       ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", SIDE], cwd=tree, capture_output=True,
+                             text=True, timeout=1200)
+        print(f"== {name} ({tree})")
+        if res.returncode != 0:
+            print(res.stdout[-2000:], res.stderr[-2000:], file=sys.stderr)
+            return 1
+        for line in res.stdout.splitlines():
+            if line.startswith(KEEP):
+                print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

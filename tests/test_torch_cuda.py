@@ -21,7 +21,8 @@ from zpack_tpu_torch.constants import CompressionMethod
 from zpack_tpu_torch.reader import Reader
 from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
-from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch, xxh3_torch
+from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
+from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch, replay_cases, xxh3_torch
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -393,6 +394,39 @@ def test_rep_kernels_match_plain(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert bool(got[1].any()) == (base == 0)
+    # blocks on both sides of the scan's warp and tile lengths, in one launch
+    for underflow in ("none", "first", "last"):
+        ovs, lls, mls, seq_off, entry = rep_edge_case(REP_EDGE_LENGTHS + [7], underflow)
+        ov, ll, ml, seq_off, entry = (torch.from_numpy(a).to(cuda)
+                                      for a in (ovs, lls, mls, seq_off, entry))
+        got = fse_torch.rep_totals(ov, ll, ml, seq_off)
+        want = fse_torch.rep_totals_plain(ov, ll, ml, seq_off)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), underflow
+        got = fse_torch.rep_apply(ov, ll, seq_off, entry)
+        want = fse_torch.rep_apply_plain(ov, ll, seq_off, entry)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), underflow
+        assert bool(got[1].any()) == (underflow != "none")
+
+
+_REPLAY_CASES = replay_cases.cases()
+
+
+@pytest.mark.parametrize("name", sorted(_REPLAY_CASES))
+def test_replay_kernel_matches_plain_on_adversarial_rows(cuda, name):
+    """Copy chains, sources at chunk edges, literal-only segments, every row
+    shape: the kernel equals ``replay_plain``, exact, and raises nothing (its
+    error word stays clear)."""
+    batch = _REPLAY_CASES[name]
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in lz4_torch.REPLAY_ARGS]
+    lz4_torch.reset_launches()
+    got = lz4_torch.replay(*args, n_out=batch["n_out"])
+    want = lz4_torch.replay_plain(*args, n_out=batch["n_out"])
+    torch.cuda.synchronize()
+    assert lz4_torch.LAUNCHES["lz4_replay"] == 1
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), replay_cases.replay_bytewise(batch))
 
 
 def test_replay_kernel_matches_plain_on_long_rows(cuda):

@@ -10,7 +10,7 @@ from zpack_tpu.codecs.lz4 import block as lz4block
 from zpack_tpu.errors import DecompressError as JaxDecompressError
 from zpack_tpu.kernels import lz4_jax
 from zpack_tpu_torch.errors import DecompressError
-from zpack_tpu_torch.kernels import lz4_torch
+from zpack_tpu_torch.kernels import lz4_torch, replay_cases
 
 torch.set_num_threads(1)
 
@@ -96,6 +96,48 @@ def test_parse_matches_jax_on_edges(blk):
     got = lz4_torch.parse_block_sequences(blk)
     for g, w in zip(got, want):
         assert np.array_equal(g, w) if isinstance(g, np.ndarray) else g == w
+
+
+_CASES = replay_cases.cases()
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_replay_plain_matches_bytewise_on_adversarial_rows(name):
+    """Copy chains, sources at chunk edges, literal-only segments, every
+    row shape: ``replay_plain`` (and ``replay`` on CPU tensors) equals the
+    batch executed one byte at a time, exact."""
+    batch = _CASES[name]
+    want = replay_cases.replay_bytewise(batch)
+    args = [torch.from_numpy(batch[k]) for k in lz4_torch.REPLAY_ARGS]
+    got = lz4_torch.replay_plain(*args, n_out=batch["n_out"])
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(lz4_torch.replay(*args, n_out=batch["n_out"]), got)
+
+
+def test_adversarial_cases_cover_what_they_name():
+    """The generator keeps its promises: a row-long chain, sequence counts
+    at the chunk's edges, an S that is no multiple of the chunk, rows on
+    both sides of 64 KiB, padding rows, literal-only segments with offset 0
+    between matches, and long matches on both sides of their offset."""
+    c = _CASES
+    chain = c["chain"]
+    assert (chain["offset"][0, 1:3001] == 8).all() and chain["n_seq"][0] == 3001
+    assert chain["out_len"][-1] == 0 and chain["n_seq"][-1] == 0
+    counts = c["sequence counts 0, 1, 31, 32, 33, 70"]
+    assert counts["n_seq"][:6].tolist() == [0, 1, 31, 32, 33, 70]
+    assert counts["seg_start"].shape[1] % replay_cases.CHUNK
+    sizes = c["rows under and over 64 KiB"]["out_len"]
+    assert sizes.max() > 65536 > sizes[sizes > 0].min()
+    mixed = c["literal-only segments mixed in"]
+    ns = int(mixed["n_seq"][0])
+    off, st = mixed["offset"][0, :ns], mixed["seg_start"][0, :ns]
+    lit_only = (np.diff(st) == mixed["lit_len"][0, : ns - 1]) & (off[:-1] == 0)
+    assert 100 < lit_only.sum() < ns - 100
+    long = c["long matches"]
+    ml = np.diff(long["seg_start"][0, : long["n_seq"][0]]) - long["lit_len"][0, : long["n_seq"][0] - 1]
+    o = long["offset"][0, : long["n_seq"][0] - 1]
+    assert ((ml >= 128) & (o < ml)).any() and ((ml >= 128) & (o >= ml)).any()
 
 
 def test_replay_cpu_counts_no_launch():

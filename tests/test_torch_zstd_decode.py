@@ -11,6 +11,7 @@ import pytest
 import torch
 import zstandard
 
+from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
 from test_kernels import _huff_table_pair, _seq_heavy_corpora
 from zpack_tpu import native
 from zpack_tpu.codecs.zstd import fse as zfse, frame as zframe, huffman as H, seq as zseq
@@ -318,6 +319,45 @@ def test_rep_resolution_matches_jax_and_host(entry_base):
         assert fse_torch.eval_rep_map(sel[b], val[b], entry[b]) == rep_end
         assert fse_torch.eval_rep_map(sel[b], val[b], entry[b]) == fse_jax.eval_rep_map(
             sel_p[b, last], val_p[b, last], entry[b])
+
+
+@pytest.mark.parametrize("underflow", ["none", "first", "last"])
+@pytest.mark.parametrize("n", REP_EDGE_LENGTHS)
+def test_rep_tile_edges_match_host_and_jax(n, underflow):
+    """A block of ``n`` sequences, on both sides of the CUDA scan's warp and
+    tile lengths, between two short blocks: totals, sums, offsets and the
+    error flag equal the sequential state machine's and the JAX scan's."""
+    lengths = [5, n, 40]
+    ovs, lls, mls, seq_off, entry = rep_edge_case(lengths, underflow)
+    f_ov, f_ll, f_ml = (torch.from_numpy(a) for a in (ovs, lls, mls))
+    sel, val, sums = fse_torch.rep_totals_plain(f_ov, f_ll, f_ml, torch.from_numpy(seq_off))
+    offs, err = fse_torch.rep_apply_plain(f_ov, f_ll, torch.from_numpy(seq_off),
+                                          torch.from_numpy(entry))
+    N = max(lengths)
+    pad = np.zeros((2, len(lengths), N), np.int32)
+    for b in range(len(lengths)):
+        lo, hi = int(seq_off[b]), int(seq_off[b + 1])
+        pad[0, b, : hi - lo], pad[1, b, : hi - lo] = ovs[lo:hi], lls[lo:hi]
+    nsq = np.array(lengths, np.int32)
+    sel_p, val_p = fse_jax.rep_prefix_maps(jnp.asarray(pad[0]), jnp.asarray(pad[1]),
+                                           jnp.asarray(nsq))
+    j_offs, j_err = (np.asarray(a) for a in fse_jax.apply_rep_maps(
+        sel_p, val_p, jnp.asarray(entry), jnp.asarray(pad[0]), jnp.asarray(pad[1]),
+        jnp.asarray(nsq)))
+    sel_p, val_p = np.asarray(sel_p), np.asarray(val_p)
+    assert np.array_equal(err.numpy(), j_err)
+    for b, k in enumerate(lengths):
+        lo, hi = int(seq_off[b]), int(seq_off[b + 1])
+        want, rep_end = _host_rep(ovs[lo:hi], lls[lo:hi], entry[b].tolist())
+        assert offs[lo:hi].tolist() == want
+        assert np.array_equal(offs[lo:hi].numpy(), j_offs[b, :k])
+        assert bool(err[b]) == any(o <= 0 for o in want)
+        assert bool(err[b]) == (underflow == "first" and k >= 1 or underflow == "last" and k >= 2)
+        assert fse_torch.eval_rep_map(sel[b], val[b], entry[b]) == rep_end
+        last = max(k - 1, 0)
+        assert np.array_equal(sel[b].numpy(), sel_p[b, last])
+        assert np.array_equal(val[b].numpy(), val_p[b, last])
+        assert sums[b].tolist() == [int(lls[lo:hi].sum()), int(mls[lo:hi].sum())]
 
 
 def test_wrappers_reject_other_devices():

@@ -120,7 +120,7 @@ def lib() -> ctypes.CDLL:
             cdll.zp_lz4_tokenize.restype = i
             cdll.zp_lz4_tokenize.argtypes = [p, i, i, i, i, i, i, p, p, p, p, p]
             cdll.zp_lz4_replay.restype = i
-            cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p]
+            cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p, i, p, p, p]
             i64 = ctypes.c_longlong
             cdll.zp_xxh3_batch.restype = i
             cdll.zp_xxh3_batch.argtypes = [p, i64, p, i, p, p, p, p]

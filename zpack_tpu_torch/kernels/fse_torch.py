@@ -644,6 +644,11 @@ def rep_apply_plain(ovs, lls, seq_off, entry):
     return off[valid], (valid & (off <= 0)).any(1)
 
 
+#: sequences a tile of the CUDA scan (``kThreads`` in ``csrc/rep_resolve.cu``),
+#: one a thread; the tests put block lengths on both sides of it
+REP_TILE = 1024
+
+
 def _rep_launch(name: str, tensors: tuple, outs: tuple, B: int) -> None:
     dev = tensors[0].device
     for t in tensors:
@@ -661,8 +666,8 @@ def _rep_launch(name: str, tensors: tuple, outs: tuple, B: int) -> None:
 
 
 def rep_totals(ovs, lls, mls, seq_off):
-    """:func:`rep_totals_plain` on the CPU; on a GPU, the CUDA walk
-    (``csrc/rep_resolve.cu``).  Same inputs, same outputs."""
+    """:func:`rep_totals_plain` on the CPU; on a GPU, the CUDA scan, one CTA
+    per block (``csrc/rep_resolve.cu``).  Same inputs, same outputs."""
     if ovs.device.type == "cpu":
         return rep_totals_plain(ovs, lls, mls, seq_off)
     if ovs.device.type != "cuda":
@@ -677,8 +682,8 @@ def rep_totals(ovs, lls, mls, seq_off):
 
 
 def rep_apply(ovs, lls, seq_off, entry):
-    """:func:`rep_apply_plain` on the CPU; on a GPU, the CUDA walk
-    (``csrc/rep_resolve.cu``).  Same inputs, same outputs."""
+    """:func:`rep_apply_plain` on the CPU; on a GPU, the CUDA scan, one CTA
+    per block (``csrc/rep_resolve.cu``).  Same inputs, same outputs."""
     if ovs.device.type == "cpu":
         return rep_apply_plain(ovs, lls, seq_off, entry)
     if ovs.device.type != "cuda":

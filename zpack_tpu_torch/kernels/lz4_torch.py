@@ -560,10 +560,21 @@ def replay_plain(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq,
     return torch.where(valid, out, 0).to(torch.uint8)
 
 
+#: positions a tile of the CUDA replay, and the ints of its zeroed state: the
+#: error word, then a flag a round (``kTile``, ``kState`` in ``csrc/lz4_replay.cu``)
+REPLAY_TILE = 1024
+REPLAY_STATE = 40
+
+
 def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
            *, n_out: int) -> torch.Tensor:
     """:func:`replay_plain` on the CPU; on a GPU, the CUDA sequence replay
-    (``csrc/lz4_replay.cu``).  Same inputs, same outputs."""
+    (``csrc/lz4_replay.cu``).  Same inputs, same outputs.
+
+    The kernels take one int32 of scratch per output byte.  They set an
+    error word if a position is left unresolved, and this function raises on
+    it (it reads the word back, so it returns after the launches have
+    finished)."""
     args = (lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len)
     if lit_bytes.device.type == "cpu":
         return replay_plain(*args, n_out=n_out)
@@ -579,18 +590,31 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
     for t in (lit_start, lit_len, offset):
         if t.shape != seg_start.shape:
             raise ValueError("sequence tables must share one (Bp, S) shape")
-    out = torch.empty((bp, n_out), dtype=torch.uint8, device=lit_bytes.device)
-    if bp == 0:
+    dev = lit_bytes.device
+    out = torch.empty((bp, n_out), dtype=torch.uint8, device=dev)
+    if bp == 0 or n_out == 0:
         return out
+    fstride = -(-n_out // 4) * 4
+    tiles = bp * -(-fstride // REPLAY_TILE)
+    if tiles >= 2**31 or fstride >= 2**31:
+        raise ValueError("too many bytes for one replay launch")
+    # one pointer per output byte; the tile flags (all live); the state
+    f = torch.empty((bp, fstride), dtype=torch.int32, device=dev)
+    live = torch.ones(tiles, dtype=torch.int32, device=dev)
+    state = torch.zeros(REPLAY_STATE, dtype=torch.int32, device=dev)
     lib = _build.lib()
-    with torch.cuda.device(lit_bytes.device):
+    with torch.cuda.device(dev):
         rc = lib.zp_lz4_replay(
             lit_bytes.data_ptr(), lit_bytes.shape[1], seg_start.data_ptr(),
             lit_start.data_ptr(), lit_len.data_ptr(), offset.data_ptr(),
             n_seq.data_ptr(), out_len.data_ptr(), bp, S, n_out, out.data_ptr(),
-            torch.cuda.current_stream(lit_bytes.device).cuda_stream)
+            f.data_ptr(), fstride, live.data_ptr(), state.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lz4_replay")
     LAUNCHES["lz4_replay"] += 1
+    if int(state[0]):
+        raise RuntimeError("lz4_replay: a copy chain was left unresolved; the sequence "
+                           "tables are inconsistent and the output is incomplete")
     return out
 
 

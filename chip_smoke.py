@@ -6,7 +6,11 @@
 1. prints the card (nvidia-smi name and power limit) and the toolchain, and
    builds the hand-written kernels from ``zpack_tpu_torch/csrc``;
 2. holds the LZ4 match finder kernel against its plain PyTorch version on
-   256 blocks of 64 KiB, at depth 2 and 8 and match caps 8 and 16 (exact);
+   256 blocks of 64 KiB, at depth 2 and 8 and match caps 8 and 16, and on
+   the adversarial windows of ``kernels/tokenize_cases.py`` in every wire
+   format each admits (one hash bucket as long as the window, buckets across
+   every warp's stretch, widths that are no power of two, dictionary
+   windows, the end-of-window rules, chains longer than the depth; exact);
 3. holds the sequence replay kernel against its plain version on the
    replay batch of the main path's frames, on RLE-heavy blocks and on the
    adversarial batches of ``kernels/replay_cases.py`` (copy chains, sources
@@ -232,6 +236,46 @@ def phase_tokenize(corpus: bytes, device, lz4_torch) -> dict:
           f"({mb / plain_ms * 1e3:.1f} MB/s)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **tokenize_bound(blocks, lz4_torch.tokenize(blocks, 2, 8), 2, 8)}
+
+
+def phase_tokenize_cases(device, lz4_torch) -> dict:
+    """Every adversarial window of ``kernels/tokenize_cases.py`` (and its
+    mirror image as a second row), in every mode its width admits and at
+    every depth it names, and the mixed batches at both CTA shapes: the
+    kernel's wire arrays and estimate against the plain versions (exact).
+    Returns the largest error per ``kernels`` row (named as the launch
+    counters are)."""
+    from zpack_tpu_torch.kernels import tokenize_cases
+
+    errs = dict.fromkeys([lz4_torch.launch_key(m) for m in lz4_torch.MODES] + ["lz4_est"], 0)
+
+    def hold(name, blocks, mode, capj, depth, dict_pad):
+        got, est = lz4_torch.tokenize_est(blocks, depth, capj, mode, dict_pad)
+        want = lz4_torch.tokenize_plain(blocks, depth, capj, mode, dict_pad)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        ee = int((est - lz4_torch.est_plain(want, mode)).abs().max())
+        key = lz4_torch.launch_key(mode)
+        errs[key], errs["lz4_est"] = max(errs[key], e), max(errs["lz4_est"], ee)
+        if e or ee:
+            raise AssertionError(f"tokenize kernel != plain on {name!r}: mode {mode} capj {capj} "
+                                 f"depth {depth} (max_abs_err {e}, estimate off by {ee})")
+
+    for name, case in tokenize_cases.cases().items():
+        blocks = torch.from_numpy(np.stack([case.window, case.window[::-1].copy()])).to(device)
+        runs = [(m, c, d) for m, c in tokenize_cases.admitted(case) for d in case.depths]
+        for mode, capj, depth in runs:
+            hold(name, blocks, mode, capj, depth, case.dict_pad)
+        print(f"tokenize case {name!r} (window {len(case.window)}, dictionary {case.dict_pad}): "
+              f"equal in {len(runs)} runs (modes x caps x depths {case.depths})")
+    for W in (8192, 65536):
+        blocks = torch.from_numpy(tokenize_cases.mixed_batch(W)).to(device)
+        runs = [(m, c, d) for m, c in tokenize_cases.admitted(tokenize_cases.Case(blocks[0]))
+                for d in (1, 2, 8, 64)]
+        for mode, capj, depth in runs:
+            hold(f"mixed batch {W}", blocks, mode, capj, depth, 0)
+        print(f"tokenize mixed batch ({blocks.shape[0]} x {W}): equal in {len(runs)} runs")
+    return errs
 
 
 def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz4block) -> dict:
@@ -980,6 +1024,7 @@ def main() -> int:
     print(f"corpus: {len(corpus)} bytes in {time.perf_counter() - t0:.2f} s")
 
     tok = phase_tokenize(corpus, device, lz4_torch)
+    tc = phase_tokenize_cases(device, lz4_torch)
     rep = phase_replay(corpus, device, lz4_torch, extract, DeviceCompressor, lz4block)
     sets = xxh3_sets(corpus)
     xb = phase_xxh3_batch(sets, device, xxh3_torch, H)
@@ -1015,7 +1060,8 @@ def main() -> int:
         {"name": "lz4_tokenize", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
          "replaces": "zpack_tpu/kernels/lz4_pallas.py:106",
          "launches": launches["lz4_tokenize"], **tok,
-         "max_abs_err": max(tok["max_abs_err"], ep["lz4_tokenize"]["max_abs_err"]),
+         "max_abs_err": max(tok["max_abs_err"], ep["lz4_tokenize"]["max_abs_err"],
+                            tc["lz4_tokenize"]),
          "dictionary_path_launches": d_launches[8192]["lz4_tokenize"],
          "dictionary_window_ms": ep["lz4_tokenize"]["ms"],
          "dictionary_window_plain_ms": ep["lz4_tokenize"]["plain_ms"],
@@ -1024,19 +1070,23 @@ def main() -> int:
          "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:119",
          "launches": d_launches[4096]["lz4_tokenize_u16"], **ep["lz4_tokenize_u16"],
+         "max_abs_err": max(ep["lz4_tokenize_u16"]["max_abs_err"], tc["lz4_tokenize_u16"]),
          "lz4_compress_launches": u16_launches["lz4_tokenize_u16"]},
         {"name": "lz4_tokenize_hash", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:50",
-         "launches": e_launches["lz4_tokenize_hash"], **ep["lz4_tokenize_hash"]},
+         "launches": e_launches["lz4_tokenize_hash"], **ep["lz4_tokenize_hash"],
+         "max_abs_err": max(ep["lz4_tokenize_hash"]["max_abs_err"], tc["lz4_tokenize_hash"])},
         {"name": "lz4_tokenize_scatter", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:266",
-         "launches": e_launches["lz4_tokenize_scatter"], **ep["lz4_tokenize_scatter"]},
+         "launches": e_launches["lz4_tokenize_scatter"], **ep["lz4_tokenize_scatter"],
+         "max_abs_err": max(ep["lz4_tokenize_scatter"]["max_abs_err"],
+                            tc["lz4_tokenize_scatter"])},
         {"name": "lz4_est", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_tokenize.cu",
          "replaces": "zpack_tpu/parallel/pipeline.py:92",
          "launches": sum(n for k, n in d_launches[4096].items() if k.startswith("lz4_tokenize")),
-         **ep["lz4_est"]},
+         **ep["lz4_est"], "max_abs_err": max(ep["lz4_est"]["max_abs_err"], tc["lz4_est"])},
         {"name": "lz4_replay", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_replay.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:491",
          "launches": launches["lz4_replay"], **rep,

@@ -7,6 +7,8 @@ Runs parent, change, change, parent, each in a process of its own with its
 own build of the kernels: two checkouts are compared only inside one run on
 one card.  Each side drives, through its own ``chip_smoke.py``'s phases,
 
+* the LZ4 match finder against its plain version in every wire format, at
+  the shapes of the ``kernels`` line (kernel ms, plain ms),
 * the sequence replay against its plain version on the main path's LZ4
   rows (kernel ms, plain ms),
 * the LZ4 archive round trip of the 64 MiB corpus, twice,
@@ -33,6 +35,9 @@ from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
 dev = torch.device("cuda")
 corpus = cs.build_corpus(cs.CORPUS_BYTES)
+cs.phase_tokenize(corpus, dev, lz4_torch)
+cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
+cs.phase_epilogues(corpus, cut, cs.train_blob(cut), dev, lz4_torch)
 cs.phase_replay(corpus, dev, lz4_torch, extract, DeviceCompressor, lz4block)
 cs.phase_main_path(corpus, dev, lz4_torch)
 modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch, "rep_totals": fse_torch,
@@ -42,7 +47,8 @@ cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
 cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
 '''
 
-KEEP = ("replay (", "main path rep", "zstd extract main path rep", "zstd extract main path phases")
+KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "main path rep",
+        "zstd extract main path rep", "zstd extract main path phases")
 
 
 def main() -> int:

@@ -22,7 +22,8 @@ from zpack_tpu_torch.reader import Reader
 from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
-from zpack_tpu_torch.kernels import fse_torch, huffman_torch, lz4_torch, replay_cases, xxh3_torch
+from zpack_tpu_torch.kernels import (fse_torch, huffman_torch, lz4_torch, replay_cases,
+                                     tokenize_cases, xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -49,12 +50,15 @@ def _rows(B: int) -> list[bytes]:
     return [_text(B, 1), noise, bytes(B), (b"xy" * B)[:B], tail + bytes(B - len(tail))]
 
 
-@pytest.mark.parametrize("capj", [8, 16])
+@pytest.mark.parametrize("capj", [5, 8, 13, 16])
 @pytest.mark.parametrize("depth", [2, 8])
 @pytest.mark.parametrize("B", [4096, 65536])
 def test_tokenize_kernel_matches_plain(cuda, B, depth, capj):
-    blocks = torch.from_numpy(
-        np.frombuffer(b"".join(_rows(B)), np.uint8).reshape(-1, B).copy()).to(cuda)
+    """Both CTA shapes (windows up to 16 KiB, and larger), text, noise and
+    zero rows beside every adversarial case cut to the width; caps that are
+    and are not whole 4-byte words (the kernel compares a word at a time)."""
+    rows = np.frombuffer(b"".join(_rows(B)), np.uint8).reshape(-1, B)
+    blocks = torch.from_numpy(np.concatenate([rows, tokenize_cases.mixed_batch(B)])).to(cuda)
     got = lz4_torch.tokenize(blocks, depth, capj)
     want = lz4_torch.tokenize_plain(blocks, depth, capj)
     torch.cuda.synchronize()
@@ -63,7 +67,10 @@ def test_tokenize_kernel_matches_plain(cuda, B, depth, capj):
 
 
 def _windows(B: int, dict_pad: int, cuda) -> torch.Tensor:
-    rows = np.frombuffer(b"".join(_rows(B)), np.uint8).reshape(-1, B)
+    """Text, noise and zero rows and every adversarial case cut to ``B``
+    bytes, each behind the same ``dict_pad`` bytes of dictionary."""
+    rows = np.concatenate([np.frombuffer(b"".join(_rows(B)), np.uint8).reshape(-1, B),
+                           tokenize_cases.mixed_batch(B)])
     head = np.frombuffer(_text(dict_pad, 9), np.uint8)
     return torch.from_numpy(
         np.concatenate([np.broadcast_to(head, (len(rows), dict_pad)), rows], axis=1).copy()).to(cuda)
@@ -87,8 +94,46 @@ def test_tokenize_epilogues_and_est_match_plain(cuda, mode, capj, B, dict_pad, d
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.to(torch.int32), w.to(torch.int32))
     assert torch.equal(est, lz4_torch.est_plain(want, mode))
-    key = "lz4_tokenize" if mode == "pair" else f"lz4_tokenize_{mode}"
-    assert lz4_torch.LAUNCHES == {**dict.fromkeys(lz4_torch.LAUNCHES, 0), key: 1}
+    assert lz4_torch.LAUNCHES == {**dict.fromkeys(lz4_torch.LAUNCHES, 0),
+                                  lz4_torch.launch_key(mode): 1}
+
+
+_TOKENIZE_CASES = tokenize_cases.cases()
+
+
+@pytest.mark.parametrize("name", sorted(_TOKENIZE_CASES))
+def test_tokenize_kernel_matches_plain_on_adversarial_windows(cuda, name):
+    """One bucket as long as the window, buckets across every warp's stretch,
+    windows that are no power of two, dictionary windows, the end rules and
+    chains longer than the depth: exact in every mode the window admits."""
+    case = _TOKENIZE_CASES[name]
+    blocks = torch.from_numpy(np.stack([case.window, case.window[::-1].copy()])).to(cuda)
+    for mode, capj in tokenize_cases.admitted(case):
+        for depth in case.depths:
+            got, est = lz4_torch.tokenize_est(blocks, depth, capj, mode, case.dict_pad)
+            want = lz4_torch.tokenize_plain(blocks, depth, capj, mode, case.dict_pad)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert torch.equal(g.to(torch.int32), w.to(torch.int32)), (mode, capj, depth)
+            assert torch.equal(est, lz4_torch.est_plain(want, mode)), (mode, capj, depth)
+
+
+def test_tokenize_large_window_needs_no_power_of_two_scratch(cuda):
+    """A window over the small shape's limit takes two bytes of scratch a
+    position and no more; a small one, and "hash", none at all."""
+    for W, mode, scratch in ((40000, "pair", 2 * 40000), (16384, "pair", 0), (40000, "hash", 0)):
+        blocks = torch.from_numpy(tokenize_cases.mixed_batch(W)[:4]).to(cuda)
+        out_bytes = sum(4 * W * t.itemsize for t in lz4_torch.WIRE_DTYPES[mode])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = lz4_torch.tokenize(blocks, 2, 8, mode)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        assert peak <= out_bytes + 4 * scratch + 4096, (W, mode, peak)
+        want = lz4_torch.tokenize_plain(blocks, 2, 8, mode)
+        assert all(torch.equal(g.to(torch.int32), w.to(torch.int32)) for g, w in zip(got, want))
 
 
 def test_tokenize_refuses_what_the_wire_cannot_hold(cuda):

@@ -5,7 +5,10 @@ Same bytes in, same match tables out, compared exactly (tolerance 0):
 (the main path's "pair" stage), at capj=16 against the Pallas kernel run in
 interpret mode, each other wire format ("u16", "hash", "scatter") against
 its JAX tokenizer on the raw wire arrays, dictionary windows against the
-JAX step's slicing, and ``est_plain`` against the ``_est`` formula."""
+JAX step's slicing, and ``est_plain`` against the ``_est`` formula.  The
+adversarial windows of ``kernels/tokenize_cases.py`` go through the same
+JAX tokenizers, and through a numpy statement of the hash chain that the
+CUDA kernel walks, so that the chain is proved equal to the sort here."""
 
 import random
 
@@ -17,7 +20,7 @@ import jax.numpy as jnp
 
 from test_kernels import _mix
 from zpack_tpu.kernels import lz4_jax, lz4_pallas
-from zpack_tpu_torch.kernels import lz4_torch
+from zpack_tpu_torch.kernels import lz4_torch, tokenize_cases
 
 torch.set_num_threads(1)
 
@@ -207,3 +210,132 @@ def test_tokenize_cpu_takes_plain_and_counts_no_launch():
 def test_tokenize_rejects_bad_arguments(bad):
     with pytest.raises(ValueError):
         lz4_torch.tokenize(**bad)
+
+
+# ---------------------------------------------------------------------------
+# The adversarial windows of kernels/tokenize_cases.py
+# ---------------------------------------------------------------------------
+
+_CASES = tokenize_cases.cases()
+_CASE_MODES = [(name, mode, capj) for name, case in _CASES.items()
+               for mode, capj in tokenize_cases.admitted(case)]
+
+
+def _jax_wire(window: np.ndarray, depth: int, mode: str, capj: int, dict_pad: int):
+    """The JAX tokenizer of ``mode`` on the whole window, its outputs cut to
+    the data positions as ``pipeline._step_fn.local_step`` cuts them."""
+    data = jnp.asarray(window)
+    if mode == "pair":
+        out = lz4_jax.tokenize_block_resort(data, depth=depth, n_words=capj // 4)
+    elif mode == "u16":
+        out = (lz4_jax.tokenize_block_u16(data, depth=depth, n_words=capj // 4),)
+    elif mode == "hash":
+        out = lz4_jax.tokenize_block_noscatter(data, depth=depth, n_words=capj // 4)
+    else:
+        out = lz4_jax.tokenize_block(data, depth=depth)
+    return [np.asarray(a)[dict_pad:] for a in out]
+
+
+@pytest.mark.parametrize("name,mode,capj", [c for c in _CASE_MODES if c[1:] != ("pair", 16)])
+def test_tokenize_plain_matches_jax_on_adversarial_windows(name, mode, capj):
+    """Exact, on the raw wire arrays, in each mode the window admits and at
+    each depth the case names ("pair" has no JAX twin at cap 16)."""
+    case = _CASES[name]
+    for depth in case.depths:
+        want = _jax_wire(case.window, depth, mode, capj, case.dict_pad)
+        got, _ = _port_wire(case.window.tobytes(), depth, capj, mode, case.dict_pad)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w, err_msg=f"depth {depth}")
+
+
+def _chain_tables(window: np.ndarray, depth: int, capj: int):
+    """The match finder as a hash chain, in numpy: a stable order of the
+    positions by their hash; ``prev[p]``, the position one sorted row above
+    ``p``'s if its hash is equal, else ``p``; a walk of up to ``depth``
+    links, nearest first, the strictly longest candidate winning; the
+    end-of-window rules.  Returns ``(order, src, mlen)``: the sorted
+    positions and the position-ordered tables (src -1 = none) of the whole
+    window."""
+    W = len(window)
+    bp = np.concatenate([window, np.zeros(capj + 4, np.uint8)]).astype(np.int64)
+    u = bp[:W] | (bp[1:W + 1] << 8) | (bp[2:W + 2] << 16) | (bp[3:W + 3] << 24)
+    h = ((u * tokenize_cases.HASH_MUL) & 0xFFFFFFFF) >> 16
+    order = np.argsort(h, kind="stable")
+    prev = np.arange(W)
+    same = h[order[1:]] == h[order[:-1]]
+    prev[order[1:][same]] = order[:-1][same]
+    pos = np.arange(W)
+    best_len, best_src = np.zeros(W, np.int64), np.zeros(W, np.int64)
+    c, alive = pos.copy(), np.ones(W, bool)
+    for _ in range(depth):
+        n = prev[c]
+        alive &= n != c
+        c = n
+        run, eq = np.zeros(W, np.int64), alive.copy()
+        for k in range(capj):
+            eq &= bp[pos + k] == bp[c + k]
+            run += eq
+        better = (run >= 4) & (run > best_len)
+        best_len, best_src = np.where(better, run, best_len), np.where(better, c, best_src)
+    ml = np.minimum(best_len, W - 5 - pos)
+    ok = (best_len >= 4) & (pos > 0) & (pos < W - 12) & (ml >= 4)
+    return order, np.where(ok, best_src, -1).astype(np.int32), np.where(ok, ml, 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("name,mode,capj", _CASE_MODES)
+def test_tokenize_plain_matches_the_chain_formulation(name, mode, capj):
+    """The sort of ``tokenize_plain`` and the chain of the CUDA kernel are
+    one function: same tables in every mode, the same order in "hash"."""
+    case = _CASES[name]
+    d = case.dict_pad
+    for depth in case.depths:
+        order, src, mlen = _chain_tables(case.window, depth, capj)
+        got, est = _port_wire(case.window.tobytes(), depth, capj, mode, d)
+        if mode == "hash":
+            np.testing.assert_array_equal(got[0], order)
+        if mode == "scatter":
+            tables = got
+        else:
+            tables = lz4_torch.from_jax_wire(mode, got)
+        np.testing.assert_array_equal(tables[1], mlen[d:], err_msg=f"depth {depth}")
+        np.testing.assert_array_equal(tables[0], src[d:], err_msg=f"depth {depth}")
+        assert est == _est_numpy(mlen[d:])
+
+
+def test_adversarial_windows_hold_what_they_name():
+    """The cases are what their names say, so a later edit cannot empty them."""
+    def hashes(w):
+        bp = np.concatenate([w, np.zeros(4, np.uint8)]).astype(np.int64)
+        u = bp[:-4] | (bp[1:-3] << 8) | (bp[2:-2] << 16) | (bp[3:-1] << 24)
+        return ((u * tokenize_cases.HASH_MUL) & 0xFFFFFFFF) >> 16
+
+    assert len(set(hashes(_CASES["zeros 65536"].window))) == 1
+    assert len(set(hashes(_CASES["distinct hashes"].window))) == 4096
+    for name, stretch in (("straddle 65536", 2048), ("straddle 8192", 1024)):
+        h = hashes(_CASES[name].window)
+        for edge in tokenize_cases.EDGE_HASHES:
+            at = np.nonzero(h == edge)[0]
+            assert set(at // stretch) == set(range(len(h) // stretch)), (name, edge)
+    assert sorted(len(c.window) for c in _CASES.values() if not c.dict_pad)[:4] == [1, 12, 13, 4096]
+    # the match at W - 13 is kept and ends at W - 5; none starts at W - 12
+    w = _CASES["matches into the end rules"].window
+    _, src, mlen = _chain_tables(w, 2, 8)
+    assert (mlen[-13], src[-13], mlen[-12]) == (8, 127, 0)
+    assert mlen[-20] == 8 and _chain_tables(w, 2, 16)[2][-20] == 15
+    # every depth finds other matches in the deep bucket
+    deep = _CASES["bucket longer than depth"]
+    sums = [int(_chain_tables(deep.window, depth, 16)[2].sum()) for depth in deep.depths]
+    assert sums == sorted(set(sums)) and (hashes(deep.window) == 0x1234).sum() >= 200
+
+
+@pytest.mark.parametrize("W", [8192, 65536])
+def test_mixed_batch_rows_are_independent(W):
+    """Rows of every kind in one batch give what each gives alone."""
+    rows = tokenize_cases.mixed_batch(W)
+    assert len(rows) == len(_CASES)
+    src, code = lz4_torch.tokenize(torch.from_numpy(rows), 2, 8)
+    for i in range(len(rows)):
+        one_src, one_code = lz4_torch.tokenize(torch.from_numpy(rows[i:i + 1]), 2, 8)
+        assert torch.equal(src[i], one_src[0]) and torch.equal(code[i], one_code[0])

@@ -57,6 +57,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def launch_key(mode: str) -> str:
+    """The key of :data:`LAUNCHES` that counts the tokenizer's mode."""
+    return "lz4_tokenize" if mode == "pair" else f"lz4_tokenize_{mode}"
+
+
 # ---------------------------------------------------------------------------
 # Match finder
 # ---------------------------------------------------------------------------
@@ -181,7 +186,13 @@ def est_plain(arrays, mode: str) -> torch.Tensor:
     return est.reshape(1)
 
 
-_OUT_DTYPES = {"pair": (torch.uint16, torch.uint8), "u16": (torch.uint16,),
+#: windows up to this many bytes run in the kernel's small shape (256
+#: threads, everything in shared memory; ``kSmallWindow`` in
+#: ``csrc/lz4_tokenize.cu``); larger ones take a uint16 scratch a position
+TOKENIZE_SMALL_WINDOW = 16384
+
+#: the element types of each wire format's arrays
+WIRE_DTYPES = {"pair": (torch.uint16, torch.uint8), "u16": (torch.uint16,),
                "hash": (torch.int32, torch.int32), "scatter": (torch.int32, torch.int32)}
 
 
@@ -189,8 +200,10 @@ def tokenize_est(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
                  mode: str = "pair", dict_pad: int = 0):
     """``(arrays, est)``: :func:`tokenize_plain` and :func:`est_plain` on the
     CPU; on a GPU, one launch of the CUDA match finder
-    (``csrc/lz4_tokenize.cu``), which writes the wire format ``mode`` and
-    reduces the estimate in its own body.  Same inputs, same outputs."""
+    (``csrc/lz4_tokenize.cu``: a stable radix order of the positions by
+    their hash, a hash-chain table in shared memory, outputs stored in
+    position order), which writes the wire format ``mode`` and reduces the
+    estimate in its own body.  Same inputs, same outputs."""
     if blocks.device.type == "cpu":
         arrays = tokenize_plain(blocks, depth, capj, mode, dict_pad)
         return arrays, est_plain(arrays, mode)
@@ -200,21 +213,24 @@ def tokenize_est(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
     nb, W = blocks.shape
     cols = W if mode == "hash" else W - dict_pad
     arrays = tuple(torch.empty((nb, cols), dtype=t, device=blocks.device)
-                   for t in _OUT_DTYPES[mode])
+                   for t in WIRE_DTYPES[mode])
     est = torch.zeros(1, dtype=torch.int64, device=blocks.device)
     if nb == 0:
         return arrays, est
-    np2 = 1 << (W - 1).bit_length()
-    keys = torch.empty((nb, np2), dtype=torch.int32, device=blocks.device)
+    # the sorted order of a large window's positions: every other shape
+    # keeps it in shared memory, and "hash" sorts into its ``pos`` output
+    order = None
+    if W > TOKENIZE_SMALL_WINDOW and mode != "hash":
+        order = torch.empty((nb, W), dtype=torch.int16, device=blocks.device)
     lib = _build.lib()
     with torch.cuda.device(blocks.device):
         rc = lib.zp_lz4_tokenize(
             blocks.data_ptr(), nb, W, dict_pad, depth, capj, MODES.index(mode),
-            keys.data_ptr(), arrays[0].data_ptr(),
+            None if order is None else order.data_ptr(), arrays[0].data_ptr(),
             arrays[1].data_ptr() if len(arrays) > 1 else None, est.data_ptr(),
             torch.cuda.current_stream(blocks.device).cuda_stream)
     _build.check(rc, "lz4_tokenize")
-    LAUNCHES["lz4_tokenize" if mode == "pair" else f"lz4_tokenize_{mode}"] += 1
+    LAUNCHES[launch_key(mode)] += 1
     return arrays, est
 
 

@@ -41,10 +41,14 @@
    run over its bytes records the inputs of every kernel it launches; the
    Huffman decode, FSE decode and repeat-offset kernels, and the replay on
    the zstd frame rows, are held against their plain versions on them
-   (exact); then ``Reader.read_file`` of the entry runs twice with the
-   launch counters and the codec's fallback counts at zero: the corpus must
-   come back (XXH3 verified), all four kernels must have been launched and
-   no fallback taken; ``native.zstd_decompress`` of the entry is timed for
+   (exact), and the FSE decode on the adversarial batches of
+   ``kernels/fse_cases.py`` (every table mode, one sequence, the corrupt
+   streams, 0 to 3,000 sequences in one launch, a row above the
+   shared-memory stage read from global memory; exact); then
+   ``Reader.read_file`` of the entry runs twice with the launch counters
+   and the codec's fallback counts at zero: the corpus must come back (XXH3
+   verified), all four kernels must have been launched and no fallback
+   taken; ``native.zstd_decompress`` of the entry is timed for
    scale; the fallback ``decompress_zstd_batched`` must decode the first
    frame, and a frame with one corrupted byte must raise DecompressError;
 8. the tokenizer's other wire formats and its size estimate: the "u16"
@@ -619,6 +623,30 @@ def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceComp
     return launches
 
 
+def phase_fse_cases(device, fse_torch) -> int:
+    """Every batch of ``kernels/fse_cases.py``: the FSE decode kernel's five
+    outputs against the plain version's (exact).  Returns the largest error."""
+    from zpack_tpu_torch.kernels import fse_cases
+
+    err = 0
+    for name, case in fse_cases.cases().items():
+        batch = fse_torch.build_decode_batch(case.items)
+        args = [torch.from_numpy(batch[k]).to(device) for k in fse_torch.DECODE_ARGS]
+        got = fse_torch.decode_seq_streams(*args)
+        want = fse_torch.decode_seq_streams_plain(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        widest = int(batch["rows"][:, 1].max())
+        print(f"fse case {name!r}: {len(case.items)} rows, {int(batch['seq_off'][-1])} sequences "
+              f"(longest {int(np.diff(batch['seq_off']).max())}), widest row {widest} bytes "
+              f"({'above' if widest > fse_torch.STAGE_CAP else 'within'} the stage cap): "
+              f"{'equal' if e == 0 else 'DIFFERENT'} (max_abs_err {e})")
+        if e:
+            raise AssertionError(f"fse_decode kernel != plain on case {name!r}")
+    return err
+
+
 ZSTD_ENTRY = "bench.zst"
 #: the kernels of the zstd extract path (launch counter names) and their
 #: wrappers; each plain version is the wrapper's name + "_plain"
@@ -714,6 +742,8 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
             ops = tensor_bytes(got)  # one copy a byte
         elif name == "fse_decode":  # one walk of the longest block's sequences
             chain = int((args[2][1:] - args[2][:-1]).max())
+            print(f"fse_decode (zstd extract): {args[1].shape[0]} blocks, longest {chain} "
+                  f"sequences, widest row {int(args[1][:, 1].max())} bytes")
         else:  # rep_totals, rep_apply: a scan, some 20 integer operations a map
             ops = 20.0 * args[0].numel()
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1041,6 +1071,7 @@ def main() -> int:
                "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch}
     zbuf, zcomp = write_zstd_entry(corpus, device, extract)
     zk = phase_zstd_extract_kernels(zcomp, corpus, device, extract, modules)
+    fc = phase_fse_cases(device, fse_torch)
     zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device, modules)
     phase_zstd_fallback(zcomp, corpus, device, extract)
     del zbuf, zcomp, rec
@@ -1113,7 +1144,8 @@ def main() -> int:
          "launches": zx_launches["huffman_decode"], **zk["huffman_decode"]},
         {"name": "fse_decode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_decode.cu",
          "replaces": "zpack_tpu/kernels/fse_jax.py:378",
-         "launches": zx_launches["fse_decode"], **zk["fse_decode"]},
+         "launches": zx_launches["fse_decode"], **zk["fse_decode"],
+         "max_abs_err": max(zk["fse_decode"]["max_abs_err"], fc)},
         {"name": "rep_resolve", "route": "cuda", "source": "zpack_tpu_torch/csrc/rep_resolve.cu",
          "replaces": "zpack_tpu/kernels/fse_jax.py:484",
          "launches": zx_launches["rep_totals"] + zx_launches["rep_apply"],

@@ -12,6 +12,8 @@ one card.  Each side drives, through its own ``chip_smoke.py``'s phases,
 * the sequence replay against its plain version on the main path's LZ4
   rows (kernel ms, plain ms),
 * the LZ4 archive round trip of the 64 MiB corpus, twice,
+* the zstd extract kernels against their plain versions on the inputs of
+  one read (kernel ms, plain ms),
 * ``Reader.read_file`` of the corpus as one zstd entry, four times, with
   the phases of the last two.
 
@@ -43,12 +45,14 @@ cs.phase_main_path(corpus, dev, lz4_torch)
 modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch, "rep_totals": fse_torch,
            "rep_apply": fse_torch, "lz4_replay": lz4_torch}
 zbuf, zcomp = cs.write_zstd_entry(corpus, dev, extract)
+cs.phase_zstd_extract_kernels(zcomp, corpus, dev, extract, modules)
 cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
 cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
 '''
 
 KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "main path rep",
-        "zstd extract main path rep", "zstd extract main path phases")
+        "zstd extract main path rep", "zstd extract main path phases",
+        "fse_decode (zstd extract)", "huffman_decode (zstd extract)")
 
 
 def main() -> int:

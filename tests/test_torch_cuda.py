@@ -22,8 +22,8 @@ from zpack_tpu_torch.reader import Reader
 from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
-from zpack_tpu_torch.kernels import (fse_torch, huffman_torch, lz4_torch, replay_cases,
-                                     tokenize_cases, xxh3_torch)
+from zpack_tpu_torch.kernels import (fse_cases, fse_torch, huffman_torch, lz4_torch,
+                                     replay_cases, tokenize_cases, xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -414,6 +414,37 @@ def test_fse_decode_kernel_matches_plain(cuda):
     pos_f, err = got[3].cpu(), got[4].cpu()
     assert (pos_f[:-3] == 0).all() and pos_f[-3] < 0 and pos_f[-2] > 0
     assert err.tolist() == [False] * (len(items) - 1) + [True]
+
+
+@pytest.mark.parametrize("name", list(fse_cases.cases()))
+def test_fse_decode_kernel_matches_plain_on_adversarial_batches(cuda, name):
+    """Every batch of ``fse_cases.py``, the row above the stage cap (read
+    from global memory) among them, at two alignments of the rows."""
+    case = fse_cases.cases()[name]
+    for lead in (0, 7):
+        items = [(b"\x01" * lead + case.items[0][0], *case.items[0][1:]), *case.items[1:]]
+        batch = fse_torch.build_decode_batch(items)
+        args = [torch.from_numpy(batch[k]).to(cuda) for k in fse_torch.DECODE_ARGS]
+        args[1][0] += torch.tensor([lead, -lead, -8 * lead], device=cuda)  # after the lead
+        got = fse_torch.decode_seq_streams(*args)
+        want = fse_torch.decode_seq_streams_plain(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, lead)
+    pos_f, err = got[3].cpu(), got[4].cpu()
+    for i, e in enumerate(case.expect):
+        assert bool(err[i]) == (e == "offset code")
+        assert e != "ok" or pos_f[i] == 0
+
+
+def test_fse_decode_kernel_on_a_batch_with_no_sequence(cuda):
+    item = fse_cases.cases()["predefined"].items[0]
+    batch = fse_torch.build_decode_batch([(item[0], *item[1:4], 0)] * 3)
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in fse_torch.DECODE_ARGS]
+    got = fse_torch.decode_seq_streams(*args)
+    want = fse_torch.decode_seq_streams_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].numel() == 0 and torch.equal(got[3].cpu(), args[1][:, 2].cpu().to(torch.int32))
 
 
 def test_rep_kernels_match_plain(cuda):

@@ -1,4 +1,5 @@
-// zstd FSE sequence-section decode for Hopper (sm_90a): one warp per block.
+// zstd FSE sequence-section decode for Hopper (sm_90a): one CTA of 128
+// threads per block, the block's bitstream and tables in shared memory.
 //
 // Replaces zpack_tpu/kernels/fse_jax.py:decode_seq_streams (driven by
 // DeviceSequenceDecoder), the sequence stage of the zstd extract path.  The
@@ -7,153 +8,265 @@
 // zpack_tpu_torch/kernels/fse_torch.py:decode_seq_streams_plain.
 //
 // The three FSE state machines (LL, OF, ML) of a block read one backward
-// bitstream in turn, so a block is one chain; blocks are independent.  The
-// TPU design walks every block's chain in lockstep in a lax.scan, about
-// eleven (B,)-wide gathers a step.  Here one warp owns one block: its lanes
-// copy the block's three decode tables (3 x 512 int32, 6 KB) into shared
-// memory, and lane 0 walks the chain, keeping a 64-bit window of the
-// stream's bits in a register (refilled with eight byte loads when a read
-// reaches below it) and writing each sequence's literal length, match
-// length and raw offset value to its place in the flat outputs.
+// bitstream in turn, so a block is one chain; blocks are independent.  But
+// the chain carries only the bit position and the three states: how many
+// bits a step consumes follows from its three table entries, and the value
+// bits (offset, match and literal extras) need not be read to go on.  So,
+// as the plain version states it, the chain and the values are two passes:
 //
-// What bounds it: the longest block's chain, three shared-memory table
-// reads side by side (one per machine) plus three bit reads a step; all
-// blocks run at once.  Reads below bit 0 give zeros, as the
-// scan's zero padding does.
+//   1. All threads stage the block's bytes into shared memory (16-byte
+//      loads, zero chunks below and above) and its three decode tables,
+//      each entry rewritten into a chain-ready form: the bits the step
+//      consumes for that machine (extras + state bits), the state bits, the
+//      code and the next-state base.
+//   2. Thread 0 walks the chain.  A step is three independent table loads,
+//      the position of the state bits, one read of them (two aligned 32-bit
+//      shared loads and a funnel shift) and the three new states, all in
+//      int32.  It stores one record a sequence (the position of the value
+//      bits, the three codes) to a global scratch, off the chain.
+//   3. All threads read the values: per record the ML+LL extras and the
+//      offset extras from the staged bits, the baselines and bit counts
+//      from shared memory; the stores are coalesced.
+//
+// A row too long for the stage (above STAGE_CAP in fse_torch.py, the size
+// of a zstd block) runs the same code with its bits read from global
+// memory.  Reads below bit 0 give zeros, as the plain version's padding
+// does.  What bounds it: the longest block's chain, one shared table load
+// and one shared bit read a step; all blocks run at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTable = 512;  // max FSE table size (accuracy log 9)
+constexpr int kTable = 512;     // max FSE table size (accuracy log 9)
+constexpr int kThreads = 128;
+constexpr int kPadChunks = 1;   // zero 16-byte chunks below a staged row
+constexpr int kTopChunks = 2;   // and above it
+constexpr int kPadBytes = 16 * kPadChunks;
 
-// baselines and extra-bit counts per literal-length and match-length code
-// (RFC 8878 §3.1.1.3.2.1.1)
-__constant__ int kLLBase[36] = {
-    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 18, 20, 22, 24, 28, 32, 40,
-    48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
-__constant__ int kLLBits[36] = {
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3,
-    4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
-__constant__ int kMLBase[53] = {
+// baselines | extra-bit count << 20 per literal-length and match-length
+// code (RFC 8878 §3.1.1.3.2.1.1); copied to shared memory before use
+__constant__ int kLLConst[36] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+    16 | 1 << 20, 18 | 1 << 20, 20 | 1 << 20, 22 | 1 << 20, 24 | 2 << 20, 28 | 2 << 20,
+    32 | 3 << 20, 40 | 3 << 20, 48 | 4 << 20, 64 | 6 << 20, 128 | 7 << 20, 256 | 8 << 20,
+    512 | 9 << 20, 1024 | 10 << 20, 2048 | 11 << 20, 4096 | 12 << 20, 8192 | 13 << 20,
+    16384 | 14 << 20, 32768 | 15 << 20, 65536 | 16 << 20};
+__constant__ int kMLConst[53] = {
     3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-    27, 28, 29, 30, 31, 32, 33, 34, 35, 37, 39, 41, 43, 47, 51, 59, 67, 83, 99, 131, 259, 515,
-    1027, 2051, 4099, 8195, 16387, 32771, 65539};
-__constant__ int kMLBits[53] = {
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11,
-    12, 13, 14, 15, 16};
+    27, 28, 29, 30, 31, 32, 33, 34,
+    35 | 1 << 20, 37 | 1 << 20, 39 | 1 << 20, 41 | 1 << 20, 43 | 2 << 20, 47 | 2 << 20,
+    51 | 3 << 20, 59 | 3 << 20, 67 | 4 << 20, 83 | 4 << 20, 99 | 5 << 20, 131 | 7 << 20,
+    259 | 8 << 20, 515 | 9 << 20, 1027 | 10 << 20, 2051 | 11 << 20, 4099 | 12 << 20,
+    8195 | 13 << 20, 16387 | 14 << 20, 32771 | 15 << 20, 65539 | 16 << 20};
 
-__device__ __forceinline__ int64_t floor_div8(int64_t x) { return x >= 0 ? x / 8 : -((7 - x) / 8); }
+// Shared memory a row of n bytes needs when its first byte sits mis bytes
+// into a 16-byte chunk.
+__host__ __device__ constexpr long long stage_bytes(long long n, int mis) {
+  return 16 * ((mis + n + 15) / 16 + kPadChunks + kTopChunks);
+}
 
-// A backward bitstream of nbytes bytes, read through a 64-bit window.  Every
-// read lies below the previous one, so the window only moves down.
-struct BackReader {
+__device__ __forceinline__ uint32_t low_bits(uint32_t v, int n) {  // n in 0..32
+  return n >= 32 ? v : v & ((1u << n) - 1);
+}
+
+// A staged row: byte j of the row at stage byte pad_bits / 8 + j, zeros
+// around it; word i is stage bytes [4i, 4i + 4).
+struct SharedBits {
+  const uint32_t* w;
+  int pad_bits;
+  __device__ __forceinline__ uint32_t word(int i) const { return w[i]; }
+};
+
+// A row above the stage cap, in the same layout but read from its bytes in
+// global memory, zero outside them.
+struct GlobalBits {
   const uint8_t* src;
-  int64_t nbytes;
-  int64_t base = INT64_MAX;  // the window holds bits [base, base + 64); none yet
-  uint64_t bits = 0;
-
-  // bits [pos, pos + n) of the stream, n in 0..32, zero outside its bytes
-  __device__ uint32_t read(int64_t pos, int n) {
-    if (n <= 0) return 0;
-    if (pos < base) {
-      base = floor_div8(pos + n - 57) * 8;  // base <= pos, base + 64 >= pos + n
-      bits = 0;
-      const int64_t b0 = base / 8;
+  int nbytes;
+  int pad_bits;
+  __device__ uint32_t word(int i) const {
+    uint32_t v = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int64_t b = b0 + j;
-        if (b >= 0 && b < nbytes) bits |= uint64_t(src[b]) << (8 * j);
-      }
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * i + k - kPadBytes;
+      if (j >= 0 && j < nbytes) v |= uint32_t(src[j]) << (8 * k);
     }
-    return uint32_t((bits >> (pos - base)) & ((1ull << n) - 1));
+    return v;
   }
 };
 
-__global__ void __launch_bounds__(32)
+// The 32 bits of the stream from bit pos up; a position below the pad
+// reads the pad's zeros, as every read starting below bit -32 must.
+template <class Bits>
+__device__ __forceinline__ uint32_t window(const Bits& bits, int pos) {
+  const int k = max(pos + bits.pad_bits, 0);
+  return __funnelshift_r(bits.word(k >> 5), bits.word((k >> 5) + 1), k);
+}
+
+// The three codes of a step's chain-ready entries, LL | OF << 6 | ML << 12.
+__device__ __forceinline__ int codes(uint32_t el, uint32_t eo, uint32_t em) {
+  return int((el >> 10 & 63) | (eo >> 10 & 63) << 6 | (em >> 10 & 63) << 12);
+}
+
+// Passes 2 and 3 of one row: the walk by thread 0, then the values by all.
+// T: the chain-ready tables, (LL, OF, ML) x kTable; entry = consumed bits
+// (extras + state bits) | state bits << 6 | code << 10 | next-state base << 16.
+template <class Bits>
+__device__ void decode_row(const Bits& bits, const uint32_t* T, const int* s_ll,
+                           const int* s_ml, const int* al, int pos, int n, int2* rec,
+                           int* lls, int* mls, int* ovs, int* pos_f, bool* err_out) {
+  if (threadIdx.x == 0) {
+    // initial states: LL, OF, ML
+    pos -= al[0];
+    int ll_s = low_bits(window(bits, pos), al[0]) & (kTable - 1);
+    pos -= al[1];
+    int of_s = low_bits(window(bits, pos), al[1]) & (kTable - 1);
+    pos -= al[2];
+    int ml_s = low_bits(window(bits, pos), al[2]) & (kTable - 1);
+    // every sequence but the last: values skipped, state bits read
+    for (int i = 0; i + 1 < n; ++i) {
+      const uint32_t el = T[ll_s], eo = T[kTable + of_s], em = T[2 * kTable + ml_s];
+      const int ps = pos - int(el & 63) - int(eo & 63) - int(em & 63);
+      const int nl = el >> 6 & 15, no = eo >> 6 & 15, nm = em >> 6 & 15;
+      rec[i] = make_int2(ps + nl + no + nm, codes(el, eo, em));
+      const uint32_t w = window(bits, ps);
+      of_s = ((eo >> 16) + (w & ((1u << no) - 1))) & (kTable - 1);
+      ml_s = ((em >> 16) + (w >> no & ((1u << nm) - 1))) & (kTable - 1);
+      ll_s = ((el >> 16) + (w >> (no + nm) & ((1u << nl) - 1))) & (kTable - 1);
+      pos = ps;
+    }
+    if (n > 0) {  // the last sequence: its values, no state update
+      const uint32_t el = T[ll_s], eo = T[kTable + of_s], em = T[2 * kTable + ml_s];
+      pos -= int((el & 63) - (el >> 6 & 15)) + int((eo & 63) - (eo >> 6 & 15)) +
+             int((em & 63) - (em >> 6 & 15));
+      rec[n - 1] = make_int2(pos, codes(el, eo, em));
+    }
+    *pos_f = pos;
+  }
+  __syncthreads();
+  // the values, a sequence a thread: ML above LL at the record's position,
+  // the offset's extras above them
+  bool bad = false;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int2 r = rec[i];
+    const int ofc = r.y >> 6 & 63;
+    bad |= ofc > 30;
+    const int of_b = min(ofc, 30);
+    const int lc = s_ll[min(r.y & 63, 35)], mc = s_ml[min(r.y >> 12 & 63, 52)];
+    const int ll_b = lc >> 20, ml_b = mc >> 20;
+    const uint32_t w = low_bits(window(bits, r.x), ll_b + ml_b);
+    lls[i] = (lc & 0xFFFFF) + int(w & ((1u << ll_b) - 1));
+    mls[i] = (mc & 0xFFFFF) + int(w >> ll_b);
+    ovs[i] = of_b > 0 ? int((1u << of_b) + low_bits(window(bits, r.x + ll_b + ml_b), of_b)) : 1;
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) *err_out = bad;
+}
+
+__global__ void __launch_bounds__(kThreads)
 fse_decode_kernel(const uint8_t* __restrict__ payload, int64_t payload_len,
                   const int64_t* __restrict__ rows, const int64_t* __restrict__ seq_off,
-                  const int* __restrict__ al, const int* __restrict__ tables,
-                  int* __restrict__ lls, int* __restrict__ mls, int* __restrict__ ovs,
-                  int* __restrict__ pos_f, bool* __restrict__ err_out) {
-  __shared__ int tab[3 * kTable];
-  const int b = blockIdx.x;
-  const int* src_tab = tables + int64_t(b) * 3 * kTable;
-  for (int i = threadIdx.x; i < 3 * kTable; i += 32) tab[i] = src_tab[i];
-  __syncwarp();
-  if (threadIdx.x != 0) return;
-
-  const int64_t start = rows[3 * b], nbytes = rows[3 * b + 1];
-  int64_t pos = rows[3 * b + 2];
+                  const int* __restrict__ al, const int* __restrict__ tables, int any_steps,
+                  int smem_bytes, int2* __restrict__ rec, int* __restrict__ lls,
+                  int* __restrict__ mls, int* __restrict__ ovs, int* __restrict__ pos_f,
+                  bool* __restrict__ err_out) {
+  extern __shared__ uint4 stage[];
+  __shared__ uint32_t T[3 * kTable];
+  __shared__ int s_ll[36], s_ml[53];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int64_t start = rows[3 * b], nbytes = rows[3 * b + 1], bl0 = rows[3 * b + 2];
   const int64_t s0 = seq_off[b], n = seq_off[b + 1] - s0;
-  if (start < 0 || nbytes < 0 || start + nbytes > payload_len) {
-    pos_f[b] = -1;
-    err_out[b] = true;
+  // a row outside the payload, or whose sentinel lies above its bytes
+  if (start < 0 || nbytes < 0 || start + nbytes > payload_len || bl0 > 8 * nbytes || n < 0) {
+    if (tid == 0) {
+      pos_f[b] = -1;
+      err_out[b] = true;
+    }
     return;
   }
-  BackReader rd{payload + start, nbytes};
-  const int* tll = tab;
-  const int* tof = tab + kTable;
-  const int* tml = tab + 2 * kTable;
-  // initial states: LL, OF, ML
-  pos -= al[3 * b];
-  int ll_s = int(rd.read(pos, al[3 * b]));
-  pos -= al[3 * b + 1];
-  int of_s = int(rd.read(pos, al[3 * b + 1]));
-  pos -= al[3 * b + 2];
-  int ml_s = int(rd.read(pos, al[3 * b + 2]));
-  bool err = false;
-  for (int64_t i = 0; i < n; ++i) {
-    const int ofe = tof[of_s & (kTable - 1)];
-    const int mle = tml[ml_s & (kTable - 1)];
-    const int lle = tll[ll_s & (kTable - 1)];
-    // values: the offset's extra bits, then ML and LL in one read
-    int ofc = ofe & 0x3F;
-    if (ofc > 30) {
-      err = true;
-      ofc = 30;
+  if (!any_steps) {  // no block of the batch has a sequence: nothing is read
+    if (tid == 0) {
+      pos_f[b] = int(bl0);
+      err_out[b] = false;
     }
-    pos -= ofc;
-    const uint32_t ofx = rd.read(pos, ofc);
-    const int ov = ofc > 0 ? int((1u << ofc) + ofx) : 1;
-    const int mlc = min(mle & 0x3F, 52), llc = min(lle & 0x3F, 35);
-    const int mlb = kMLBits[mlc], llb = kLLBits[llc];
-    pos -= mlb + llb;
-    const uint32_t w = rd.read(pos, mlb + llb);
-    lls[s0 + i] = kLLBase[llc] + int(w & ((1u << llb) - 1));
-    mls[s0 + i] = kMLBase[mlc] + int(w >> llb);
-    ovs[s0 + i] = ov;
-    // state updates, LL, ML, OF, but after the last sequence
-    if (i + 1 < n) {
-      const int lln = (lle >> 6) & 0x3FF, mln = (mle >> 6) & 0x3FF, ofn = (ofe >> 6) & 0x3FF;
-      pos -= lln + mln + ofn;
-      uint32_t wu = rd.read(pos, lln + mln + ofn);
-      of_s = (ofe >> 16) + int(wu & ((1u << ofn) - 1));
-      wu >>= ofn;
-      ml_s = (mle >> 16) + int(wu & ((1u << mln) - 1));
-      ll_s = (lle >> 16) + int(wu >> mln);
+    return;
+  }
+  if (tid < 36) s_ll[tid] = kLLConst[tid];
+  if (tid < 53) s_ml[tid] = kMLConst[tid];
+  const uint8_t* src = payload + start;
+  const int mis = int(reinterpret_cast<uintptr_t>(src) & 15);
+  const bool staged = stage_bytes(nbytes, mis) <= smem_bytes;
+  if (staged) {
+    const int nch = int((mis + nbytes + 15) / 16);
+    const uint4* g = reinterpret_cast<const uint4*>(src - mis);
+    for (int c = tid; c < nch + kPadChunks + kTopChunks; c += kThreads) {
+      const int gc = c - kPadChunks, lo = 16 * gc - mis;  // the chunk's first row byte
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (gc >= 0 && gc < nch) {
+        if (lo >= 0 && lo + 16 <= nbytes) {
+          v = g[gc];
+        } else {  // the row's first or last chunk: its bytes only
+          uint32_t u[4] = {0, 0, 0, 0};
+          for (int j = max(-lo, 0); j < min(16, int(nbytes) - lo); ++j)
+            u[j >> 2] |= uint32_t(src[lo + j]) << (8 * (j & 3));
+          v = make_uint4(u[0], u[1], u[2], u[3]);
+        }
+      }
+      stage[c] = v;
     }
   }
-  pos_f[b] = int(pos);
-  err_out[b] = err;
+  __syncthreads();
+  // the tables, chain-ready; the extras of a code past its alphabet are
+  // its alphabet's last, the offset's capped at 30
+  for (int i = tid; i < 3 * kTable; i += kThreads) {
+    const uint32_t e = uint32_t(tables[int64_t(b) * 3 * kTable + i]);
+    const int c = i / kTable, sym = e & 63, nb = min(int(e >> 6 & 0x3FF), 15);
+    const int extra = c == 0 ? s_ll[min(sym, 35)] >> 20 : c == 1 ? min(sym, 30)
+                                                                 : s_ml[min(sym, 52)] >> 20;
+    T[i] = uint32_t(nb + extra) | uint32_t(nb) << 6 | uint32_t(sym) << 10 | (e >> 16) << 16;
+  }
+  __syncthreads();
+  const int* al_b = al + 3 * b;
+  int2* rec_b = rec + s0;
+  if (staged)
+    decode_row(SharedBits{reinterpret_cast<const uint32_t*>(stage), 8 * (kPadBytes + mis)}, T,
+               s_ll, s_ml, al_b, int(bl0), int(n), rec_b, lls + s0, mls + s0, ovs + s0,
+               pos_f + b, err_out + b);
+  else
+    decode_row(GlobalBits{src, int(nbytes), 8 * kPadBytes}, T, s_ll, s_ml, al_b, int(bl0),
+               int(n), rec_b, lls + s0, mls + s0, ovs + s0, pos_f + b, err_out + b);
 }
 
 }  // namespace
 
 // payload: flat u8 of payload_len bytes; rows (B, 3) i64 (byte_start,
 // n_bytes, bits_left0); seq_off (B + 1) i64; al (B, 3) i32 and tables
-// (B, 3, 512) i32, both (ll, of, ml); lls, mls, ovs (seq_off[B],) i32;
-// pos_f (B,) i32; err (B,) bool.  Returns cudaGetLastError().
+// (B, 3, 512) i32, both (ll, of, ml); any_steps: whether any block has a
+// sequence; stage: the bytes of the longest row to stage in shared memory
+// (a longer row reads global memory); rec (seq_off[B], 2) i32 scratch;
+// lls, mls, ovs (seq_off[B],) i32; pos_f (B,) i32; err (B,) bool.
+// Returns cudaGetLastError().
 extern "C" int zp_fse_decode(const void* payload, long long payload_len, const void* rows,
                              const void* seq_off, const void* al, const void* tables, int B,
-                             void* lls, void* mls, void* ovs, void* pos_f, void* err,
-                             void* stream) {
-  fse_decode_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+                             int any_steps, int stage, void* rec, void* lls, void* mls,
+                             void* ovs, void* pos_f, void* err, void* stream) {
+  const int smem = int(stage_bytes(stage < 0 ? 0 : stage, 15));
+  constexpr int kMaxDevices = 64;
+  static int smem_set[kMaxDevices] = {};  // the attribute as set, per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && smem > smem_set[dev]) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        fse_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return int(rc);
+    smem_set[dev] = smem;
+  }
+  fse_decode_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(payload), payload_len, static_cast<const int64_t*>(rows),
       static_cast<const int64_t*>(seq_off), static_cast<const int*>(al),
-      static_cast<const int*>(tables), static_cast<int*>(lls), static_cast<int*>(mls),
-      static_cast<int*>(ovs), static_cast<int*>(pos_f), static_cast<bool*>(err));
+      static_cast<const int*>(tables), any_steps, smem, static_cast<int2*>(rec),
+      static_cast<int*>(lls), static_cast<int*>(mls), static_cast<int*>(ovs),
+      static_cast<int*>(pos_f), static_cast<bool*>(err));
   return int(cudaGetLastError());
 }

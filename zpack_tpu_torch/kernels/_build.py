@@ -133,7 +133,7 @@ def lib() -> ctypes.CDLL:
             cdll.zp_huffman_decode.restype = i
             cdll.zp_huffman_decode.argtypes = [p, i64, p, i, p, i, p, i64, p, p]
             cdll.zp_fse_decode.restype = i
-            cdll.zp_fse_decode.argtypes = [p, i64, p, p, p, p, i, p, p, p, p, p, p]
+            cdll.zp_fse_decode.argtypes = [p, i64, p, p, p, p, i, i, i, p, p, p, p, p, p, p]
             cdll.zp_rep_totals.restype = i
             cdll.zp_rep_totals.argtypes = [p, p, p, p, i, p, p, p, p]
             cdll.zp_rep_apply.restype = i

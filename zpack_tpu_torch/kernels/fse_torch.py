@@ -299,6 +299,9 @@ _ML_CONST_NP = (_ML_BASE_NP | (_ML_BITS_NP << 20)).astype(np.int32)  # (53,)
 DECODE_COLS = ("byte_start", "n_bytes", "bits_left0")
 #: the tensor arguments of :func:`decode_seq_streams`, in order
 DECODE_ARGS = ("payload", "rows", "seq_off", "al", "tables")
+#: the longest row (bytes of bitstream) the CUDA decoder stages in shared
+#: memory, a zstd block's bound; a longer one is read from global memory
+STAGE_CAP = 128 << 10
 
 
 def pack_decode_table(t, max_bits_pad: int = TABLE) -> np.ndarray:
@@ -441,7 +444,17 @@ def decode_seq_streams_plain(payload, rows, seq_off, al, tables):
 
 def decode_seq_streams(payload, rows, seq_off, al, tables):
     """:func:`decode_seq_streams_plain` on the CPU; on a GPU, the CUDA
-    decoder (``csrc/fse_decode.cu``).  Same inputs, same outputs."""
+    decoder (``csrc/fse_decode.cu``).  Same inputs, same outputs, for rows
+    whose sentinel lies in their bytes (``bits_left0 < 8 * n_bytes``, as
+    :func:`build_decode_batch` makes them) and tables of
+    :func:`pack_decode_table`; a row outside the payload or with its
+    sentinel above its bytes gets ``pos_f`` -1 and ``err``.
+
+    The kernel stages each row of up to :data:`STAGE_CAP` bytes in shared
+    memory, sized from the batch's longest row, and reads a longer one from
+    global memory; it keeps one record of 8 bytes a sequence in a scratch.
+    Its bit positions are int32: a block of ``2**23`` sequences or more, or
+    a row of ``2**26`` bytes or more, raises ValueError."""
     args = (payload, rows, seq_off, al, tables)
     if payload.device.type == "cpu":
         return decode_seq_streams_plain(*args)
@@ -452,20 +465,27 @@ def decode_seq_streams(payload, rows, seq_off, al, tables):
         if t.device != payload.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {payload.device}")
     B = rows.shape[0]
-    total = int(seq_off[-1])
-    lls, mls, ovs = (torch.empty(total, dtype=torch.int32, device=payload.device)
-                     for _ in range(3))
-    pos_f = torch.empty(B, dtype=torch.int32, device=payload.device)
-    err = torch.empty(B, dtype=torch.bool, device=payload.device)
+    i32, dev = torch.int32, payload.device
+    total, widest, longest = int(seq_off[-1]), 0, 0
+    if B:  # one read-back: the output size, the stage size, the longest chain
+        total, widest, longest = torch.stack(
+            [seq_off[-1], rows[:, 1].max(), (seq_off[1:] - seq_off[:-1]).max()]).tolist()
+    if longest >= 1 << 23 or widest >= 1 << 26:
+        raise ValueError("a block of 2**23 sequences or a row of 2**26 bytes is beyond the "
+                         "kernel's int32 bit positions")
+    lls, mls, ovs = (torch.empty(total, dtype=i32, device=dev) for _ in range(3))
+    rec = torch.empty((total, 2), dtype=i32, device=dev)
+    pos_f = torch.empty(B, dtype=i32, device=dev)
+    err = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return lls, mls, ovs, pos_f, err
     lib = _build.lib()
-    with torch.cuda.device(payload.device):
+    with torch.cuda.device(dev):
         rc = lib.zp_fse_decode(
             payload.data_ptr(), payload.numel(), rows.data_ptr(), seq_off.data_ptr(),
-            al.data_ptr(), tables.data_ptr(), B, lls.data_ptr(), mls.data_ptr(),
-            ovs.data_ptr(), pos_f.data_ptr(), err.data_ptr(),
-            torch.cuda.current_stream(payload.device).cuda_stream)
+            al.data_ptr(), tables.data_ptr(), B, int(longest > 0), min(max(widest, 0), STAGE_CAP),
+            rec.data_ptr(), lls.data_ptr(), mls.data_ptr(), ovs.data_ptr(), pos_f.data_ptr(),
+            err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fse_decode")
     LAUNCHES["fse_decode"] += 1
     return lls, mls, ovs, pos_f, err
@@ -522,8 +542,9 @@ class TorchSequenceDecoder:
         batch = build_decode_batch(items)
         lls, mls, ovs, pos_f, err = decode_seq_streams(
             *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS))
-        pos_f = pos_f.cpu().numpy()
-        if err.cpu().numpy().any():
+        flags = torch.cat([pos_f, err.to(torch.int32)]).cpu().numpy()  # one copy
+        pos_f, err = flags[:len(items)], flags[len(items):]
+        if err.any():
             raise DecompressError("offset code out of device range")
         for i, it in enumerate(items):
             if it[4] and pos_f[i] != 0:

@@ -41,10 +41,14 @@
    run over its bytes records the inputs of every kernel it launches; the
    Huffman decode, FSE decode and repeat-offset kernels, and the replay on
    the zstd frame rows, are held against their plain versions on them
-   (exact), and the FSE decode on the adversarial batches of
+   (exact), the FSE decode on the adversarial batches of
    ``kernels/fse_cases.py`` (every table mode, one sequence, the corrupt
    streams, 0 to 3,000 sequences in one launch, a row above the
-   shared-memory stage read from global memory; exact); then
+   shared-memory stage read from global memory; exact), and the Huffman
+   decode on those of ``kernels/huffman_cases.py`` (every table width, no
+   and one symbol, over-read and unconsumed streams, shared tables,
+   scattered destinations, malformed rows, a row above the stage among
+   1,000 short ones; exact); then
    ``Reader.read_file`` of the entry runs twice with the launch counters
    and the codec's fallback counts at zero: the corpus must come back (XXH3
    verified), all four kernels must have been launched and no fallback
@@ -114,6 +118,10 @@ OPS_PER_S = 67e12
 #: one step of a sequential decode or encode chain: a dependent table load
 #: from shared memory or L1 (about 30 cycles) and a few integer operations
 CHAIN_STEP_NS = 20.0
+#: the Huffman decode at the zstd extract shape (1,160 streams, longest
+#: 2,970 symbols) in the design of one thread a stream, the kernel's launch
+#: through its wrapper by CUDA events, on an H100 80GB HBM3 at 700 W
+ONE_THREAD_HUFFMAN_MS = 1.120
 
 
 def tensor_bytes(*tensors) -> int:
@@ -623,6 +631,30 @@ def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceComp
     return launches
 
 
+def phase_huffman_cases(device, huffman_torch) -> int:
+    """Every batch of ``kernels/huffman_cases.py``: the Huffman decode
+    kernel's output and ``final`` against the plain version's (exact).
+    Returns the largest error."""
+    from zpack_tpu_torch.kernels import huffman_cases
+
+    err = 0
+    for name, case in huffman_cases.cases().items():
+        b = case.batch
+        args = [torch.from_numpy(b[k]).to(device) for k in huffman_torch.DECODE_ARGS]
+        got = huffman_torch.decode_streams(*args, n_out=b["n_out"], widest=b["widest"])
+        want = huffman_torch.decode_streams_plain(*args, n_out=b["n_out"])
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        print(f"huffman case {name!r}: {len(b['rows'])} rows, {int(b['rows'][:, 3].max())} "
+              f"symbols in the longest, widest row {b['widest']} bytes "
+              f"({'above' if b['widest'] > huffman_torch.STAGE_CAP else 'within'} the stage cap): "
+              f"{'equal' if e == 0 else 'DIFFERENT'} (max_abs_err {e})")
+        if e:
+            raise AssertionError(f"huffman_decode kernel != plain on case {name!r}")
+    return err
+
+
 def phase_fse_cases(device, fse_torch) -> int:
     """Every batch of ``kernels/fse_cases.py``: the FSE decode kernel's five
     outputs against the plain version's (exact).  Returns the largest error."""
@@ -738,6 +770,14 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
         ops = chain = 0
         if name == "huffman_decode":
             chain = int(args[1][:, 3].max())  # the longest stream's symbols
+            S, widest = args[1].shape[0], kwargs["widest"]
+            resident = modules[name].ctas_per_sm(widest) * \
+                torch.cuda.get_device_properties(device).multi_processor_count
+            print(f"huffman_decode (zstd extract): {S} streams, longest {chain} symbols, widest "
+                  f"row {widest} bytes: {'all' if resident >= S else 'not all'} {S} CTAs "
+                  f"resident ({resident} fit); the one-thread-a-stream kernel this design "
+                  f"replaced took {ONE_THREAD_HUFFMAN_MS:.3f} ms at this shape on an H100 80GB HBM3 "
+                  f"at 700 W, this one {ms:.3f} ms")
         elif name == "lz4_replay":
             ops = tensor_bytes(got)  # one copy a byte
         elif name == "fse_decode":  # one walk of the longest block's sequences
@@ -1072,6 +1112,7 @@ def main() -> int:
     zbuf, zcomp = write_zstd_entry(corpus, device, extract)
     zk = phase_zstd_extract_kernels(zcomp, corpus, device, extract, modules)
     fc = phase_fse_cases(device, fse_torch)
+    hc = phase_huffman_cases(device, huffman_torch)
     zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device, modules)
     phase_zstd_fallback(zcomp, corpus, device, extract)
     del zbuf, zcomp, rec
@@ -1141,7 +1182,8 @@ def main() -> int:
         {"name": "huffman_decode", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/huffman_decode.cu",
          "replaces": "zpack_tpu/kernels/huffman_jax.py:385",
-         "launches": zx_launches["huffman_decode"], **zk["huffman_decode"]},
+         "launches": zx_launches["huffman_decode"], **zk["huffman_decode"],
+         "max_abs_err": max(zk["huffman_decode"]["max_abs_err"], hc)},
         {"name": "fse_decode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_decode.cu",
          "replaces": "zpack_tpu/kernels/fse_jax.py:378",
          "launches": zx_launches["fse_decode"], **zk["fse_decode"],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in one run.
 
-    python3 scripts/torch_ab.py PARENT_DIR CHANGE_DIR
+    python3 scripts/torch_ab.py [--extract] PARENT_DIR CHANGE_DIR
 
 Runs parent, change, change, parent, each in a process of its own with its
 own build of the kernels: two checkouts are compared only inside one run on
@@ -16,6 +16,9 @@ one card.  Each side drives, through its own ``chip_smoke.py``'s phases,
   one read (kernel ms, plain ms),
 * ``Reader.read_file`` of the corpus as one zstd entry, four times, with
   the phases of the last two.
+
+With ``--extract`` each side runs the last two only (the zstd extract
+kernels and reads), for a change to the decoders.
 
 Prints the card's name and power limit first, then each side's lines as
 the phases print them.  Needs a CUDA GPU; exits non-zero if a side fails.
@@ -37,11 +40,12 @@ from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
 dev = torch.device("cuda")
 corpus = cs.build_corpus(cs.CORPUS_BYTES)
-cs.phase_tokenize(corpus, dev, lz4_torch)
-cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
-cs.phase_epilogues(corpus, cut, cs.train_blob(cut), dev, lz4_torch)
-cs.phase_replay(corpus, dev, lz4_torch, extract, DeviceCompressor, lz4block)
-cs.phase_main_path(corpus, dev, lz4_torch)
+if not EXTRACT_ONLY:
+    cs.phase_tokenize(corpus, dev, lz4_torch)
+    cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
+    cs.phase_epilogues(corpus, cut, cs.train_blob(cut), dev, lz4_torch)
+    cs.phase_replay(corpus, dev, lz4_torch, extract, DeviceCompressor, lz4block)
+    cs.phase_main_path(corpus, dev, lz4_torch)
 modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch, "rep_totals": fse_torch,
            "rep_apply": fse_torch, "lz4_replay": lz4_torch}
 zbuf, zcomp = cs.write_zstd_entry(corpus, dev, extract)
@@ -56,16 +60,21 @@ KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
+    args = sys.argv[1:]
+    extract_only = args[:1] == ["--extract"]
+    if extract_only:
+        args = args[1:]
+    if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    parent, change = sys.argv[1:]
+    parent, change = args
+    side = f"EXTRACT_ONLY = {extract_only}\n" + SIDE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
     for name, tree in (("parent", parent), ("change", change), ("change", change),
                        ("parent", parent)):
-        res = subprocess.run([sys.executable, "-c", SIDE], cwd=tree, capture_output=True,
+        res = subprocess.run([sys.executable, "-c", side], cwd=tree, capture_output=True,
                              text=True, timeout=1200)
         print(f"== {name} ({tree})")
         if res.returncode != 0:

@@ -22,8 +22,8 @@ from zpack_tpu_torch.reader import Reader
 from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
-from zpack_tpu_torch.kernels import (fse_cases, fse_torch, huffman_torch, lz4_torch,
-                                     replay_cases, tokenize_cases, xxh3_torch)
+from zpack_tpu_torch.kernels import (fse_cases, fse_torch, huffman_cases, huffman_torch,
+                                     lz4_torch, replay_cases, tokenize_cases, xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -385,6 +385,31 @@ def test_huffman_decode_kernel_matches_plain(cuda):
     dec = huffman_torch.TorchHuffmanDecoder(cuda)
     out = dec.decode_batch(payloads, dts, [len(s) for s in streams])
     assert all(np.array_equal(o, s) for o, s in zip(out, streams))
+
+
+_HUFFMAN_CASES = huffman_cases.cases()
+
+
+@pytest.mark.parametrize("name", list(_HUFFMAN_CASES))
+def test_huffman_decode_kernel_matches_plain_on_adversarial_batches(cuda, name):
+    """Every batch of ``huffman_cases.py``, the row above the stage cap
+    (read from global memory) and the malformed rows among them, at two
+    alignments of the payload, with the stage size given and read back."""
+    case = _HUFFMAN_CASES[name]
+    b = case.batch
+    for lead in (0, 7):
+        rows = b["rows"].copy()
+        rows[rows[:, 0] >= 0, 0] += lead
+        payload = np.concatenate([np.full(lead, 0xA5, np.uint8), b["payload"]])
+        args = [torch.from_numpy(a).to(cuda) for a in (payload, rows, b["tables"])]
+        want = huffman_torch.decode_streams_plain(*args, n_out=b["n_out"])
+        for widest in (b["widest"], None):
+            got = huffman_torch.decode_streams(*args, n_out=b["n_out"], widest=widest)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (lead, widest)
+    for f, e in zip(got[1].cpu().tolist(), case.expect):
+        assert {"ok": f == 0, "empty": f == 0, "over-read": f < 0, "unconsumed": f > 0,
+                "malformed": f == -1}[e], (f, e)
 
 
 def _zstd_items():

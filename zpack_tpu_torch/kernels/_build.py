@@ -131,7 +131,9 @@ def lib() -> ctypes.CDLL:
             cdll.zp_fse_encode.restype = i
             cdll.zp_fse_encode.argtypes = [p, p, p, p, p, i, p, p, p]
             cdll.zp_huffman_decode.restype = i
-            cdll.zp_huffman_decode.argtypes = [p, i64, p, i, p, i, p, i64, p, p]
+            cdll.zp_huffman_decode.argtypes = [p, i64, p, i, p, i, p, i64, p, i, p]
+            cdll.zp_huffman_decode_occupancy.restype = i
+            cdll.zp_huffman_decode_occupancy.argtypes = [i, p]
             cdll.zp_fse_decode.restype = i
             cdll.zp_fse_decode.argtypes = [p, i64, p, p, p, p, i, i, i, p, p, p, p, p, p, p]
             cdll.zp_rep_totals.restype = i

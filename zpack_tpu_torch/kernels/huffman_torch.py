@@ -27,6 +27,8 @@ The decode contract is ``huffman._decode_one_stream``'s, layout in
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -233,6 +235,12 @@ DTABLE = 1 << MAX_BITS
 DECODE_COLS = ("byte_start", "n_bytes", "start_bit", "n_syms", "dst_off", "table", "max_bits")
 #: the tensor arguments of :func:`decode_streams`, in order
 DECODE_ARGS = ("payload", "rows", "tables")
+#: the longest row the CUDA decoder stages in shared memory, in bytes; a
+#: longer one reads its bits from global memory (``csrc/huffman_decode.cu``)
+STAGE_CAP = 16 * 1024
+#: rows of this many bytes or more are beyond the CUDA decoder's int32 bit
+#: positions
+MAX_ROW_BYTES = 1 << 26
 
 
 def _check_decode(payload, rows, tables) -> None:
@@ -244,31 +252,49 @@ def _check_decode(payload, rows, tables) -> None:
         raise ValueError(f"tables must be (T, {DTABLE}) int32 sym | nbits << 8")
 
 
-def decode_streams_plain(payload, rows, tables, *, n_out: int):
+def malformed(rows, payload_len: int, n_tables: int):
+    """(S,) bool: the rows that decode nothing and get ``final = -1``: a
+    table index outside ``[0, n_tables)``, ``max_bits`` outside 1..11,
+    bytes outside the payload, or ``start_bit`` outside ``[0, 8 *
+    n_bytes)``.  ``build_decode_batch`` makes none."""
+    start, nbytes, p, _, _, tab, mb = rows.unbind(1)
+    return ((tab < 0) | (tab >= n_tables) | (mb < 1) | (mb > MAX_BITS) | (start < 0)
+            | (nbytes < 0) | (start + nbytes > payload_len) | (p < 0) | (p >= 8 * nbytes))
+
+
+def decode_streams_plain(payload, rows, tables, *, n_out: int, widest: int | None = None):
     """Batched backward Huffman stream decode in plain PyTorch.
 
     payload: flat uint8, stream ``s`` in bytes ``[byte_start, + n_bytes)``;
     rows: (S, 7) int64 (``DECODE_COLS``): the sentinel's bit position
     ``start_bit``, the symbol count, the first output byte ``dst_off``, the
     table row and its ``max_bits``; tables: (T, 2048) int32 ``sym | nbits
-    << 8``.  From ``p = start_bit``, each symbol is the table entry of the
-    ``max_bits`` bits below ``p`` (zero below bit 0), written to ``dst_off
-    + k``; then ``p = max(p - nbits, 0)``, the clamp of
-    ``huffman_jax.decode_streams_scan``.
+    << 8``, of which the low 16 bits are read.  From ``p = start_bit``,
+    each symbol is the table entry of the ``max_bits`` bits below ``p``
+    (zero below bit 0), written to ``dst_off + k`` unless that lies outside
+    ``[0, n_out)``; then ``p = max(p - nbits, 0)``, the clamp of
+    ``huffman_jax.decode_streams_scan``.  Streams' destinations must not
+    overlap.  A :func:`malformed` row writes nothing.  ``widest`` is the
+    wrapper's stage size, unused here.
 
     Returns ``(out (n_out,) uint8, zero where no stream writes; final (S,)
     int32)``: ``final`` is the position before the last symbol minus its
-    bit count, 0 for a fully consumed stream (and for ``n_syms = 0``)."""
+    bit count, 0 for a fully consumed stream (and for ``n_syms = 0``), -1
+    for a malformed row."""
     _check_decode(payload, rows, tables)
     dev = payload.device
     S = rows.shape[0]
-    out = torch.zeros(n_out + 1, dtype=torch.uint8, device=dev)  # [n_out]: inactive lanes
+    out = torch.zeros(n_out + 1, dtype=torch.uint8, device=dev)  # [n_out]: skipped writes
     final = torch.zeros(S, dtype=torch.int64, device=dev)
     if S == 0:
         return out[:n_out], final.to(torch.int32)
-    start, nbytes, p, n, dst, tab, mb = rows.unbind(1)
+    bad = malformed(rows, payload.numel(), tables.shape[0])
+    # a malformed row reads as a row of no byte and no symbol
+    start, nbytes, p, n, dst, tab, mb = (torch.where(bad, 0, c) for c in rows.unbind(1))
+    mb = torch.where(bad, 1, mb)
     # the table entry at every bit position of every stream, in one flat
-    # bit space: stream s owns bits [bit0[s], bit0[s] + 8 * n_bytes[s])
+    # bit space: stream s owns bits [bit0[s], bit0[s] + 8 * n_bytes[s]); a
+    # zero entry closes it, for the rows of no byte
     nbits = nbytes * 8
     bit0 = torch.cumsum(nbits, 0) - nbits
     sid = torch.repeat_interleave(torch.arange(S, device=dev), nbits)
@@ -282,21 +308,50 @@ def decode_streams_plain(payload, rows, tables, *, n_out: int):
         v = payload[torch.where(ok, start[sid] + b, 0)].to(torch.int64)
         word |= torch.where(ok, v, 0) << (8 * j)
     win = (word >> (lo & 7)) & ((1 << mb[sid]) - 1)
-    entry = tables.to(torch.int64)[tab[sid], win]
+    entry = torch.cat([(tables.to(torch.int64)[tab[sid], win] & 0xFFFF),
+                       torch.zeros(1, dtype=torch.int64, device=dev)])
 
     for k in range(int(n.max())):
         e = entry[bit0 + p]
         nb = e >> 8
-        act = k < n
-        out[torch.where(act, dst + k, n_out)] = (e & 0xFF).to(torch.uint8)
+        d = dst + k
+        act = (k < n) & (d >= 0) & (d < n_out)
+        out[torch.where(act, d, n_out)] = (e & 0xFF).to(torch.uint8)
         final = torch.where(k == n - 1, p - nb, final)
         p = (p - nb).clamp(min=0)
-    return out[:n_out], final.to(torch.int32)
+    return out[:n_out], torch.where(bad, -1, final).to(torch.int32)
 
 
-def decode_streams(payload, rows, tables, *, n_out: int):
+def stage_size(widest: int) -> int:
+    """The bytes of a row the CUDA decoder stages in shared memory for a
+    batch whose longest row is ``widest`` bytes; raises ValueError where
+    that row's bit positions would not fit the kernel's int32."""
+    if widest >= MAX_ROW_BYTES:
+        raise ValueError(f"a row of {widest} bytes is beyond the kernel's int32 bit positions "
+                         f"(2**26 bytes or more)")
+    return min(max(widest, 0), STAGE_CAP)
+
+
+def ctas_per_sm(widest: int) -> int:
+    """How many CTAs of the CUDA decoder one SM of the current GPU holds at
+    once for a batch whose longest row is ``widest`` bytes (a CTA a row)."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.lib().zp_huffman_decode_occupancy(stage_size(widest),
+                                                          ctypes.byref(blocks)),
+                 "huffman_decode occupancy")
+    return blocks.value
+
+
+def decode_streams(payload, rows, tables, *, n_out: int, widest: int | None = None):
     """:func:`decode_streams_plain` on the CPU; on a GPU, the CUDA decoder
-    (``csrc/huffman_decode.cu``).  Same inputs, same outputs."""
+    (``csrc/huffman_decode.cu``).  Same inputs, same outputs.
+
+    ``widest``, the batch's largest ``n_bytes`` (``build_decode_batch``
+    returns it), sizes the kernel's shared-memory stage without a read-back;
+    without it the wrapper reads it from ``rows``, one device-to-host copy.
+    A row above :data:`STAGE_CAP` bytes reads global memory; a batch whose
+    ``widest`` is :data:`MAX_ROW_BYTES` or more raises ValueError before any
+    launch."""
     args = (payload, rows, tables)
     if payload.device.type == "cpu":
         return decode_streams_plain(*args, n_out=n_out)
@@ -307,6 +362,9 @@ def decode_streams(payload, rows, tables, *, n_out: int):
         if t.device != payload.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {payload.device}")
     S = rows.shape[0]
+    if widest is None:
+        widest = int(rows[:, 1].max()) if S else 0
+    stage = stage_size(widest)
     out = torch.zeros(n_out, dtype=torch.uint8, device=payload.device)
     final = torch.zeros(S, dtype=torch.int32, device=payload.device)
     if S == 0:
@@ -315,7 +373,7 @@ def decode_streams(payload, rows, tables, *, n_out: int):
     with torch.cuda.device(payload.device):
         rc = lib.zp_huffman_decode(
             payload.data_ptr(), payload.numel(), rows.data_ptr(), S, tables.data_ptr(),
-            tables.shape[0], out.data_ptr(), n_out, final.data_ptr(),
+            tables.shape[0], out.data_ptr(), n_out, final.data_ptr(), stage,
             torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(rc, "huffman_decode")
     LAUNCHES["huffman_decode"] += 1
@@ -325,11 +383,11 @@ def decode_streams(payload, rows, tables, *, n_out: int):
 def build_decode_batch(payloads: list[bytes], tables, n_symbols: list[int],
                        dst_off: list[int] | None = None) -> dict:
     """The flat batch of :func:`decode_streams` as numpy arrays (``payload``,
-    ``rows``, ``tables``), plus ``n_out``.  ``tables[i]`` is stream i's
-    ``HuffDecodeTable``; streams that share a table object share its row.
-    Streams decode back to back unless ``dst_off`` places them.  Raises
-    DecompressError, as ``DeviceHuffmanDecoder`` does, for a stream with no
-    sentinel bit."""
+    ``rows``, ``tables``), plus ``n_out`` and ``widest`` (the longest
+    payload's bytes).  ``tables[i]`` is stream i's ``HuffDecodeTable``;
+    streams that share a table object share its row.  Streams decode back
+    to back unless ``dst_off`` places them.  Raises DecompressError, as
+    ``DeviceHuffmanDecoder`` does, for a stream with no sentinel bit."""
     for p in payloads:
         if not p or p[-1] == 0:
             raise DecompressError("huffman stream missing sentinel")
@@ -352,8 +410,8 @@ def build_decode_batch(payloads: list[bytes], tables, n_symbols: list[int],
                      np.array([t.max_bits for t in tables], dtype=np.int64)],
                     axis=1).reshape(-1, len(DECODE_COLS))
     return {"payload": np.frombuffer(bytearray(b"".join(payloads)), dtype=np.uint8),
-            "rows": rows, "tables": tab_rows, "n_out": int((dst_off + n).max(initial=0))}
-
+            "rows": rows, "tables": tab_rows, "n_out": int((dst_off + n).max(initial=0)),
+            "widest": int(nbytes.max(initial=0))}
 
 
 class TorchHuffmanDecoder:
@@ -375,7 +433,7 @@ class TorchHuffmanDecoder:
         batch = build_decode_batch(payloads, tables, n_symbols, dst_off)
         syms, final = decode_streams(
             *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS),
-            n_out=batch["n_out"] if n_out is None else n_out)
+            n_out=batch["n_out"] if n_out is None else n_out, widest=batch["widest"])
         return syms, final.cpu().numpy()
 
     def decode_batch(self, payloads: list[bytes], tables, n_symbols: list[int]) -> list[np.ndarray]:

@@ -15,7 +15,11 @@
    replay batch of the main path's frames, on RLE-heavy blocks and on the
    adversarial batches of ``kernels/replay_cases.py`` (copy chains, sources
    at chunk edges, literal-only segments, every row shape; exact, and the
-   kernel's error word must stay clear: the wrapper raises on it);
+   kernel's error word must stay clear: the wrapper raises on it); then the
+   block parse that builds that batch on the card against ``build_batch``
+   on the main path's blocks and on the batches of
+   ``kernels/lz4_parse_cases.py`` (length edges, the count bound, a row
+   above the stage, every error in the host parse's order; exact);
 4. XXH3: holds the many-stream kernel against its plain version and the
    native host hash on 128 streams of 512 KiB and on 10,011 streams of
    241..65536 bytes, and the single-stream kernel on the 64 MiB corpus and
@@ -26,8 +30,8 @@
 5. drives the LZ4 main path: the port's Writer and Reader with nothing
    installed (their default device is the GPU), over a deterministic 64 MiB
    corpus; the bytes
-   must round-trip, the host decoder must read the port's frames, and both
-   LZ4 kernels must have been launched by that run;
+   must round-trip, the host decoder must read the port's frames, and the
+   LZ4 match finder, parse and replay must have been launched by that run;
 6. zstd compress: a first ``DeviceCompressor.compress_zstd`` run over a
    16 MiB cut of the corpus records the Huffman and FSE batches it builds;
    the Huffman literal-stream kernel and the FSE sequence-stream kernel are
@@ -82,9 +86,10 @@
 outputs (each once) over the card's memory rate, and its operations over
 their peak rate.  Integer operations are counted at the card's float32 rate
 outside the tensor cores; a kernel whose work is a sequential chain per
-stream or block (the Huffman decoder, the FSE coders) is bound by its
-longest chain's steps at ``CHAIN_STEP_NS`` a step, one dependent table load
-from shared memory or L1 and a few integer operations.  The repeat offsets
+stream or block (the Huffman decoder, the FSE coders, the LZ4 parse's
+token walk, XXH3's scramble a KiB) is bound by its longest chain's steps at
+``CHAIN_STEP_NS`` a step, one dependent table load from shared memory or L1
+and a few integer operations.  The repeat offsets
 are no chain (their maps compose, and the kernels scan them), so they are
 bound by their bytes: three or four int32 a sequence.
 No single PyTorch call computes any of these functions, so ``library_ms``
@@ -97,6 +102,7 @@ phase fails.  It imports nothing of jax and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -330,6 +336,80 @@ def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz
     return result
 
 
+def phase_lz4_parse(corpus: bytes, device, lz4_torch, extract, DeviceCompressor) -> dict:
+    """The CUDA block parse against ``build_batch`` on the main path's
+    blocks and on every batch of ``kernels/lz4_parse_cases.py`` (tables
+    exact, errors the same message); the wrapper, the walk and the layout
+    timed by CUDA events, ``build_batch`` by the host clock."""
+    from zpack_tpu_torch.errors import DecompressError
+    from zpack_tpu_torch.kernels import _build, lz4_parse_cases
+
+    frame = DeviceCompressor(device).compress(corpus)
+    _, blocks, bounds, _ = extract.walk_lz4f(frame)
+    flat, offsets = lz4_torch.pack_blocks(blocks, pin=True)
+    payload = flat.to(device)
+
+    def outcome(fn):
+        try:
+            return fn(), None
+        except DecompressError as e:
+            return None, str(e)
+
+    def hold(name, blocks, sizes, payload, offsets, plain=None):
+        want, werr = plain or outcome(lambda: lz4_torch.build_batch(blocks, sizes))
+        got, err = outcome(lambda: lz4_torch.parse_batch(payload, offsets, sizes))
+        torch.cuda.synchronize()
+        if err != werr:
+            raise AssertionError(f"lz4_parse on {name!r}: kernel raises {err!r}, "
+                                 f"build_batch {werr!r}")
+        if err is not None:
+            return 0, got, want
+        e = max_abs_err([got[k] for k in lz4_torch.REPLAY_ARGS],
+                        [torch.from_numpy(want[k]).to(device) for k in lz4_torch.REPLAY_ARGS])
+        if e or got["n_out"] != want["n_out"] or any(
+                got[k].shape != want[k].shape for k in lz4_torch.REPLAY_ARGS):
+            raise AssertionError(f"lz4_parse kernel != build_batch on {name!r} "
+                                 f"(max_abs_err {e})")
+        return e, got, want
+
+    t0 = time.perf_counter()
+    plain = outcome(lambda: lz4_torch.build_batch(blocks, bounds))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, got, want = hold("main-path blocks", blocks, bounds, payload, offsets, plain)
+    longest = int(want["n_seq"].max())
+    print(f"lz4_parse main-path blocks ({len(blocks)} blocks, {len(flat)} bytes, "
+          f"{int(want['n_seq'].sum())} sequences, longest {longest}; tables "
+          f"{tuple(want['seg_start'].shape)}, {tuple(want['lit_bytes'].shape)}): "
+          f"equal to build_batch (max_abs_err {err})")
+    for name, case in lz4_parse_cases.cases().items():
+        f, o = lz4_torch.pack_blocks(case.blocks)
+        e, _, _ = hold(name, case.blocks, case.sizes, f.to(device), o)
+        err = max(err, e)
+    print(f"lz4_parse cases: equal to build_batch on all "
+          f"{len(lz4_parse_cases.cases())} batches, the same errors")
+    ms = cuda_ms(lambda: lz4_torch.parse_batch(payload, offsets, bounds), 10)
+    walk = lz4_torch._parse_walk(payload, offsets)
+    walk_ms = cuda_ms(lambda: lz4_torch._parse_walk(payload, offsets), 10)
+    bp, S = want["seg_start"].shape
+    L = want["lit_bytes"].shape[1]
+    layout_ms = cuda_ms(lambda: lz4_torch._parse_layout(payload, walk, bp, S, L), 10)
+    step_ns = walk_ms * 1e6 / max(longest, 1)
+    stage = lz4_torch.parse_stage(np.diff(offsets))
+    per_sm = ctypes.c_int(0)
+    _build.check(_build.lib().zp_lz4_parse_occupancy(stage, ctypes.byref(per_sm)), "lz4_parse")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"lz4_parse walk: longest row {int(np.diff(offsets).max())} bytes, staged up to "
+          f"{stage}: {per_sm.value} CTAs an SM x {sms} SMs for {len(blocks)} blocks")
+    print(f"lz4_parse (main-path blocks): through the wrapper {ms:.3f} ms, walk {walk_ms:.3f} ms "
+          f"({step_ns:.1f} ns a step of the longest block), layout {layout_ms:.3f} ms; "
+          f"build_batch {plain_ms:.3f} ms (host)")
+    outs = [got[k] for k in lz4_torch.REPLAY_ARGS]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(tensor_bytes(payload, outs) + 16 * len(blocks), chain_steps=longest),
+            "walk_ms": walk_ms, "layout_ms": layout_ms, "walk_ns_per_step": step_ns,
+            "longest_block_sequences": longest}
+
+
 XXH3_EDGES = (241, 255, 256, 257, 1024, 1025, 1088, 1089, 16384, 16385, 65536)
 XXH3_STREAM_LENGTHS = (241, 1024, 1025, 65536, 200001)
 
@@ -384,7 +464,8 @@ def phase_xxh3_batch(sets: dict, device, xxh3_torch, H) -> dict:
               f"of which pack {pack_ms:.3f} ms, h2d {h2d_ms:.3f} ms)")
         if not result:  # the Pallas bench shape is the kernel's row
             result = {"ms": ms, "plain_ms": plain_ms,
-                      **bound(tensor_bytes(flat, offsets, secret, acc, hashes), flat.numel())}
+                      **bound(tensor_bytes(flat, offsets, secret, acc, hashes), flat.numel(),
+                              chain_steps=-(-max(map(len, streams)) // 1024))}
     result["max_abs_err"] = err
     return result
 
@@ -416,7 +497,8 @@ def phase_xxh3_stream(corpus: bytes, device, xxh3_torch, H) -> dict:
           f"host native {native_ms:.3f} ms ({mb / native_ms * 1e3:.1f} MB/s), "
           f"xxh3_64 end to end {e2e_ms:.3f} ms ({mb / e2e_ms * 1e3:.1f} MB/s)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound(tensor_bytes(data, secret, acc, hashes), data.numel())}
+            **bound(tensor_bytes(data, secret, acc, hashes), data.numel(),
+                    chain_steps=-(-data.numel() // 1024))}
 
 
 def phase_xxh3_main(files: list[bytes], corpus: bytes, device, xxh3_torch, H) -> dict:
@@ -484,7 +566,7 @@ def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
     launches = dict(lz4_torch.LAUNCHES)
     print("main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
     print(f"main path launches: {json.dumps(launches)}")
-    for k in ("lz4_tokenize", "lz4_replay"):
+    for k in ("lz4_tokenize", "lz4_parse", "lz4_replay"):
         if launches[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
     e = r.get_file_entry("bench.bin")
@@ -1096,6 +1178,7 @@ def main() -> int:
     tok = phase_tokenize(corpus, device, lz4_torch)
     tc = phase_tokenize_cases(device, lz4_torch)
     rep = phase_replay(corpus, device, lz4_torch, extract, DeviceCompressor, lz4block)
+    lp = phase_lz4_parse(corpus, device, lz4_torch, extract, DeviceCompressor)
     sets = xxh3_sets(corpus)
     xb = phase_xxh3_batch(sets, device, xxh3_torch, H)
     xs = phase_xxh3_stream(corpus, device, xxh3_torch, H)
@@ -1159,6 +1242,9 @@ def main() -> int:
          "replaces": "zpack_tpu/parallel/pipeline.py:92",
          "launches": sum(n for k, n in d_launches[4096].items() if k.startswith("lz4_tokenize")),
          **ep["lz4_est"], "max_abs_err": max(ep["lz4_est"]["max_abs_err"], tc["lz4_est"])},
+        {"name": "lz4_parse", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_parse.cu",
+         "replaces": "zpack_tpu/kernels/lz4_jax.py:433",
+         "launches": launches["lz4_parse"], **lp},
         {"name": "lz4_replay", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_replay.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:491",
          "launches": launches["lz4_replay"], **rep,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in one run.
 
-    python3 scripts/torch_ab.py [--extract] PARENT_DIR CHANGE_DIR
+    python3 scripts/torch_ab.py [--extract | --lz4-extract] PARENT_DIR CHANGE_DIR
 
 Runs parent, change, change, parent, each in a process of its own with its
 own build of the kernels: two checkouts are compared only inside one run on
@@ -18,7 +18,9 @@ one card.  Each side drives, through its own ``chip_smoke.py``'s phases,
   the phases of the last two.
 
 With ``--extract`` each side runs the last two only (the zstd extract
-kernels and reads), for a change to the decoders.
+kernels and reads), for a change to the decoders.  With ``--lz4-extract``
+each side runs the LZ4 archive round trip only (``phase_main_path``, two
+runs of create and extract), for a change to the LZ4 extract path.
 
 Prints the card's name and power limit first, then each side's lines as
 the phases print them.  Needs a CUDA GPU; exits non-zero if a side fails.
@@ -40,7 +42,14 @@ from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
 dev = torch.device("cuda")
 corpus = cs.build_corpus(cs.CORPUS_BYTES)
-if not EXTRACT_ONLY:
+if MODE == "--lz4-extract":
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.kernels import _build
+    _build.lib()  # both builds before the first round trip
+    native.get_lib()
+    cs.phase_main_path(corpus, dev, lz4_torch)
+    sys.exit(0)
+if MODE != "--extract":
     cs.phase_tokenize(corpus, dev, lz4_torch)
     cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
     cs.phase_epilogues(corpus, cut, cs.train_blob(cut), dev, lz4_torch)
@@ -55,20 +64,21 @@ cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
 '''
 
 KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "main path rep",
+        "main path phases", "main path launches", "lz4_parse",
         "zstd extract main path rep", "zstd extract main path phases",
         "fse_decode (zstd extract)", "huffman_decode (zstd extract)")
 
 
 def main() -> int:
     args = sys.argv[1:]
-    extract_only = args[:1] == ["--extract"]
-    if extract_only:
+    mode = args[0] if args[:1] in (["--extract"], ["--lz4-extract"]) else None
+    if mode:
         args = args[1:]
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     parent, change = args
-    side = f"EXTRACT_ONLY = {extract_only}\n" + SIDE
+    side = f"MODE = {mode!r}\n" + SIDE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])

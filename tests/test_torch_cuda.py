@@ -22,8 +22,10 @@ from zpack_tpu_torch.reader import Reader
 from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
+from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import (fse_cases, fse_torch, huffman_cases, huffman_torch,
-                                     lz4_torch, replay_cases, tokenize_cases, xxh3_torch)
+                                     lz4_parse_cases, lz4_torch, replay_cases, tokenize_cases,
+                                     xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -544,6 +546,100 @@ def test_replay_kernel_matches_plain_on_long_rows(cuda):
     assert torch.equal(got, want)
     out = got.cpu().numpy()
     assert [out[i, : len(r)].tobytes() for i, r in enumerate(raws)] == raws
+
+
+_PARSE_CASES = lz4_parse_cases.cases()
+
+
+def _parse_outcome(fn):
+    try:
+        return fn(), None
+    except DecompressError as e:
+        return None, str(e)
+
+
+def _hold_parse(cuda, blocks, sizes):
+    """The CUDA parse against ``build_batch``: every table exact, or the
+    same first error; returns the outcome."""
+    flat, offsets = lz4_torch.pack_blocks(blocks)
+    lz4_torch.reset_launches()
+    got, err = _parse_outcome(lambda: lz4_torch.parse_batch(flat.to(cuda), offsets, sizes))
+    want, werr = _parse_outcome(lambda: lz4_torch.build_batch(blocks, sizes))
+    torch.cuda.synchronize()
+    assert err == werr
+    assert lz4_torch.LAUNCHES["lz4_parse"] == (err is None)
+    if err is None:
+        assert got["n_out"] == want["n_out"]
+        assert np.array_equal(got["out_len_host"], want["out_len"][:len(blocks)])
+        for k in lz4_torch.REPLAY_ARGS:
+            g = got[k].cpu().numpy()
+            assert g.dtype == want[k].dtype and np.array_equal(g, want[k]), k
+    return got, err
+
+
+@pytest.mark.parametrize("name", list(_PARSE_CASES))
+def test_parse_kernel_matches_build_batch_on_cases(cuda, name):
+    """Length edges, 65,535-long runs, the count bound, a row above the
+    stage cap, every error (a parse error in a later block beside a size
+    error in an earlier one, an offset before the block start), mixed
+    batches: the kernel's tables equal ``build_batch``'s, and its errors
+    are the CPU route's, message and order."""
+    case = _PARSE_CASES[name]
+    _, err = _hold_parse(cuda, case.blocks, case.sizes)
+    assert err == case.expect
+
+
+def test_parse_kernel_matches_build_batch_on_a_corpus_frame(cuda):
+    """The blocks of a 4 MiB frame written by the device compressor."""
+    rng = np.random.default_rng(47)
+    data = _text(1 << 21, 48) + rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes() \
+        + (b"0123456789abcdef" * 65536)
+    frame = DeviceCompressor(cuda).compress(data)
+    _, blocks, bounds, _ = extract.walk_lz4f(frame)
+    assert len(blocks) >= 40
+    got, err = _hold_parse(cuda, blocks, bounds)
+    assert err is None and got["seg_start"].shape[0] == 64
+
+
+def test_lz4_extract_on_cuda_runs_no_host_parse(cuda, monkeypatch):
+    """On the CUDA route the per-token Python parse never runs: the
+    replayer decodes with it raising, through the parse and replay kernels."""
+    def host_parse(data):
+        raise AssertionError("parse_block_sequences called on the CUDA route")
+
+    monkeypatch.setattr(lz4_torch, "parse_block_sequences", host_parse)
+    raws = [_text(65536, 49), b"a" * 5000, b"", _text(300000, 50)]
+    blocks = [lz4block.compress_block(r) for r in raws]
+    lz4_torch.reset_launches()
+    got = lz4_torch.DeviceLZ4Replayer(cuda).decompress_blocks(blocks, [len(r) for r in raws])
+    assert got == raws
+    assert lz4_torch.LAUNCHES["lz4_parse"] == 1 and lz4_torch.LAUNCHES["lz4_replay"] == 1
+    data = _text(1 << 20, 51)
+    engine.install(cuda)
+    try:
+        w = Writer.to_heap()
+        w.write_archive([("d.bin", data, CompressOptions(CompressionMethod.LZ4, 1))])
+        assert Reader.from_memory(w.buffer, shared=True).read_file("d.bin") == data
+    finally:
+        engine.uninstall()
+    assert lz4_torch.LAUNCHES["lz4_parse"] == 2
+
+
+def test_lz4_replayer_errors_on_cuda_match_the_cpu_route(cuda):
+    """The replayer raises what the CPU route raises: a parse error in a
+    later block before a size error in an earlier one, and an offset
+    before the block start before any replay."""
+    bad = bytes([0x10, 0x61, 0x05, 0x00, 0x50]) + b"bcdef"
+    good = lz4block.compress_block(_text(5000, 52))
+    for blocks, sizes in (([good, good, b"\x10a\x00\x00\x00"], [4999, 5000, 100]),
+                          ([good, bad], [5000, 100]), ([good, good], [5000, 4999])):
+        want = _parse_outcome(lambda: lz4_torch.DeviceLZ4Replayer("cpu").decompress_blocks(
+            blocks, sizes))[1]
+        lz4_torch.reset_launches()
+        with pytest.raises(DecompressError) as e:
+            lz4_torch.DeviceLZ4Replayer(cuda).decompress_blocks(blocks, sizes)
+        assert str(e.value) == want
+        assert lz4_torch.LAUNCHES["lz4_replay"] == 0
 
 
 def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):

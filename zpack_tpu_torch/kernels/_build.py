@@ -121,6 +121,12 @@ def lib() -> ctypes.CDLL:
             cdll.zp_lz4_tokenize.argtypes = [p, i, i, i, i, i, i, p, p, p, p, p]
             cdll.zp_lz4_replay.restype = i
             cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p, i, p, p, p]
+            cdll.zp_lz4_parse_walk.restype = i
+            cdll.zp_lz4_parse_walk.argtypes = [p, p, p, i, i, p, p, p]
+            cdll.zp_lz4_parse_occupancy.restype = i
+            cdll.zp_lz4_parse_occupancy.argtypes = [i, p]
+            cdll.zp_lz4_parse_layout.restype = i
+            cdll.zp_lz4_parse_layout.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
             i64 = ctypes.c_longlong
             cdll.zp_xxh3_batch.restype = i
             cdll.zp_xxh3_batch.argtypes = [p, i64, p, i, p, p, p, p]

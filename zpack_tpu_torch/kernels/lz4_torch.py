@@ -1,14 +1,19 @@
-"""LZ4 device kernels for PyTorch: the match finder and the sequence replay.
+"""LZ4 device kernels for PyTorch: the match finder, the block parse and the
+sequence replay.
 
 Counterpart of ``zpack_tpu/kernels/lz4_jax.py`` and
 ``zpack_tpu/kernels/lz4_pallas.py``.  Each kernel has two halves:
 
-* a plain PyTorch version (``tokenize_plain``, ``replay_plain``) that states
-  the contract and runs on any device;
-* a wrapper (``tokenize``, ``replay``) that takes the plain version for a
-  tensor on the CPU and launches the hand-written CUDA kernel
+* a plain version (``tokenize_plain``, ``build_batch``, ``replay_plain``)
+  that states the contract;
+* a wrapper (``tokenize``, ``parse_batch``, ``replay``) that takes the plain
+  version for a tensor on the CPU and launches the hand-written CUDA kernel
   (``zpack_tpu_torch/csrc/*.cu``) for a tensor on a GPU.  It never falls
   back: a build or launch error raises.
+
+The block parse has no TPU original: the JAX package walks the tokens on
+the host.  ``build_batch`` is that walk; ``parse_batch`` runs it on the card
+(``csrc/lz4_parse.cu``) and returns the same tables there.
 
 The match finder has one matcher and four last steps, the wire formats of
 the JAX package's tokenizers (:data:`MODES`): "pair" (``tokenize_block_resort``,
@@ -30,6 +35,7 @@ import torch
 
 from ..codecs.lz4 import block as lz4block
 from ..errors import DecompressError
+from ..utils.observe import metrics
 
 from . import _build
 
@@ -47,9 +53,10 @@ MODES = ("pair", "u16", "hash", "scatter")
 #: launches of each hand-written kernel, counted by its wrapper only: the
 #: tokenizer once per launch under its mode's name ("pair" is the main
 #: path's ``lz4_tokenize``).  Every tokenizer launch also reduces its rows'
-#: size estimate, so the estimate's launches are the sum of the four modes'
+#: size estimate, so the estimate's launches are the sum of the four modes'.
+#: The parse counts once per batch (its walk and its layout)
 LAUNCHES = {"lz4_tokenize": 0, "lz4_tokenize_u16": 0, "lz4_tokenize_hash": 0,
-            "lz4_tokenize_scatter": 0, "lz4_replay": 0}
+            "lz4_tokenize_scatter": 0, "lz4_parse": 0, "lz4_replay": 0}
 
 
 def reset_launches() -> None:
@@ -535,6 +542,132 @@ REPLAY_ARGS = ("lit_bytes", "seg_start", "lit_start", "lit_len", "offset",
                "n_seq", "out_len")
 
 
+#: the messages of :func:`parse_block_sequences`, in the order of the CUDA
+#: parse's error codes 1..6 (``csrc/lz4_parse.cu``)
+PARSE_ERRORS = ("truncated literal length", "literal run overruns input",
+                "truncated match offset", "zero match offset",
+                "match offset beyond output start", "truncated match length")
+#: the longest row (compressed bytes) the CUDA parse stages in shared
+#: memory, every block of lz4f's 64 KiB size; a longer one is read from
+#: global memory
+PARSE_STAGE_CAP = 64 << 10
+#: rows must be shorter than this, so that every length fits in int32
+PARSE_MAX_ROW = 1 << 23
+
+
+def seq_bound(n: int) -> int:
+    """The most sequences a block of ``n`` compressed bytes can hold: each
+    but the last takes a token and a 2-byte offset, the last a token."""
+    return (n - 1) // 3 + 1 if n > 0 else 0
+
+
+def parse_stage(lens) -> int:
+    """The bytes of the longest row the CUDA parse stages: the longest of
+    ``lens`` up to :data:`PARSE_STAGE_CAP`."""
+    lens = np.asarray(lens)
+    return int(lens[lens <= PARSE_STAGE_CAP].max(initial=0))
+
+
+def pack_blocks(blocks: list[bytes], pin: bool = False):
+    """The blocks back to back in one uint8 tensor (pinned if ``pin``), and
+    their ``(B + 1,)`` int64 offsets."""
+    offsets = np.zeros(len(blocks) + 1, np.int64)
+    np.cumsum([len(b) for b in blocks], out=offsets[1:])
+    flat = torch.empty(int(offsets[-1]), dtype=torch.uint8, pin_memory=pin)
+    view = flat.numpy()
+    for b, lo, hi in zip(blocks, offsets[:-1], offsets[1:]):
+        view[lo:hi] = np.frombuffer(b, np.uint8)
+    return flat, offsets
+
+
+def _batch_shape(n_seq, lit_total, out_len):
+    """``(Bp, S, L, n_out)`` of :func:`build_batch` from the rows' totals."""
+    bp = 8
+    while bp < len(n_seq):
+        bp <<= 1
+    return (bp, _bucket(int(max(n_seq)), SEQ_BUCKETS), _bucket(int(max(lit_total)), BUCKETS),
+            _bucket(max(int(max(out_len)), 1), BUCKETS))
+
+
+def _parse_walk(payload: torch.Tensor, offsets: np.ndarray) -> dict:
+    """Launch pass 1 of the CUDA parse: the rows ``(B, 2)`` int64, each
+    row's first record, the records and ``info (B, 4)`` int32 ``(n_seq,
+    literal total, out_len, error code)``, all on the card."""
+    dev = payload.device
+    B = len(offsets) - 1
+    lens = np.diff(offsets)
+    if (lens < 0).any() or offsets[0] < 0 or offsets[-1] > payload.numel():
+        raise ValueError("block offsets outside the payload")
+    if lens.max() >= PARSE_MAX_ROW:
+        raise ValueError(f"a block of {int(lens.max())} bytes: the parse takes rows under "
+                         f"{PARSE_MAX_ROW}")
+    bounds = np.array([seq_bound(int(n)) for n in lens], np.int64)
+    rec_off = np.zeros(B, np.int64)
+    np.cumsum(bounds[:-1], out=rec_off[1:])
+    w = {"rows": torch.from_numpy(np.stack([offsets[:-1], lens], 1)).to(dev),
+         "rec_off": torch.from_numpy(rec_off).to(dev),
+         "rec": torch.empty((max(int(bounds.sum()), 1), 4), dtype=torch.int32, device=dev),
+         "info": torch.empty((B, 4), dtype=torch.int32, device=dev)}
+    stage = parse_stage(lens)
+    with torch.cuda.device(dev):
+        rc = _build.lib().zp_lz4_parse_walk(
+            payload.data_ptr(), w["rows"].data_ptr(), w["rec_off"].data_ptr(), B, stage,
+            w["rec"].data_ptr(), w["info"].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "lz4_parse")
+    return w
+
+
+def _parse_layout(payload: torch.Tensor, w: dict, bp: int, S: int, L: int) -> dict:
+    """Launch pass 2 of the CUDA parse: the replay's tables from the walk's
+    records, every lane written."""
+    dev = payload.device
+    out = {"lit_bytes": torch.empty((bp, L), dtype=torch.uint8, device=dev),
+           **{k: torch.empty((bp, S), dtype=torch.int32, device=dev)
+              for k in ("seg_start", "lit_start", "lit_len", "offset")},
+           "n_seq": torch.empty(bp, dtype=torch.int32, device=dev),
+           "out_len": torch.empty(bp, dtype=torch.int32, device=dev)}
+    with torch.cuda.device(dev):
+        rc = _build.lib().zp_lz4_parse_layout(
+            payload.data_ptr(), w["rows"].data_ptr(), w["rec_off"].data_ptr(),
+            w["rec"].data_ptr(), w["info"].data_ptr(), len(w["info"]), bp, S, L,
+            *(out[k].data_ptr() for k in REPLAY_ARGS), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "lz4_parse")
+    return out
+
+
+def parse_batch(payload: torch.Tensor, offsets, out_sizes) -> dict:
+    """:func:`build_batch` of the blocks ``payload[offsets[i]:offsets[i + 1]]``
+    as tensors on ``payload``'s device: on the CPU, the host parse; on a GPU,
+    the CUDA parse (``csrc/lz4_parse.cu``: a token walk a block, one small
+    read-back of each row's totals, then the tables laid out by scans).
+    Same tables, same errors, in the same order: the first block's parse
+    error, then the first block over its declared size.  The dict also
+    holds ``n_out`` and, as numpy, ``out_len_host`` (the B blocks' rows).
+    Rows of 2^23 bytes or more raise ValueError on a GPU."""
+    offsets = np.asarray(offsets, np.int64)
+    if len(offsets) < 2 or payload.dtype != torch.uint8 or payload.dim() != 1:
+        raise ValueError("parse_batch takes a 1-D uint8 payload and at least one block")
+    if payload.device.type == "cpu":
+        flat = payload.numpy().tobytes()
+        batch = build_batch([flat[a:b] for a, b in zip(offsets[:-1], offsets[1:])], out_sizes)
+        out = {k: torch.from_numpy(batch[k]) for k in REPLAY_ARGS}
+        return {**out, "n_out": batch["n_out"],
+                "out_len_host": batch["out_len"][:len(offsets) - 1]}
+    if payload.device.type != "cuda" or not payload.is_contiguous():
+        raise ValueError("parse_batch takes a contiguous CPU or CUDA tensor")
+    w = _parse_walk(payload, offsets)
+    n_seq, lit_total, out_len, err = w["info"].cpu().numpy().T
+    bad = np.flatnonzero(err)
+    if bad.size:
+        raise DecompressError(PARSE_ERRORS[int(err[bad[0]]) - 1])
+    if (out_len > np.asarray(out_sizes, np.int64)).any():
+        raise DecompressError("block output exceeds declared size")
+    bp, S, L, n_out = _batch_shape(n_seq, lit_total, out_len)
+    out = _parse_layout(payload, w, bp, S, L)
+    LAUNCHES["lz4_parse"] += 1
+    return {**out, "n_out": n_out, "out_len_host": out_len}
+
+
 def replay_plain(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq,
                  out_len, *, n_out: int) -> torch.Tensor:
     """Batched sequence replay in plain PyTorch: the ``_replay_build`` +
@@ -635,9 +768,13 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
 
 
 class DeviceLZ4Replayer:
-    """Parse blocks' token streams on the host, replay the sequences in one
-    batched launch on ``device``, trim the outputs (bit-exact vs
-    ``block.decompress_block`` for independent blocks)."""
+    """Parse blocks' token streams and replay the sequences on ``device``,
+    trim the outputs (bit-exact vs ``block.decompress_block`` for
+    independent blocks).  On the CPU: :func:`build_batch` and
+    :func:`replay_plain`.  On a GPU: the blocks go up once from pinned
+    memory, the CUDA parse builds the replay's tables there
+    (:func:`parse_batch`), the replay runs, the rows are trimmed to their
+    lengths on the card and come back in one copy to pinned memory."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -647,7 +784,24 @@ class DeviceLZ4Replayer:
         decoded-size bounds.  Returns the decoded bytes."""
         if not blocks:
             return []
-        batch = build_batch(blocks, out_sizes)
-        args = [torch.from_numpy(batch[k]).to(self.device) for k in REPLAY_ARGS]
-        out = replay(*args, n_out=batch["n_out"]).cpu().numpy()
-        return [out[i, : batch["out_len"][i]].tobytes() for i in range(len(blocks))]
+        if self.device.type == "cpu":
+            batch = build_batch(blocks, out_sizes)
+            out = replay_plain(*(torch.from_numpy(batch[k]) for k in REPLAY_ARGS),
+                               n_out=batch["n_out"]).numpy()
+            return [out[i, : batch["out_len"][i]].tobytes() for i in range(len(blocks))]
+        with metrics.phase("torch.lz4_pack", sum(map(len, blocks))):
+            flat, offsets = pack_blocks(blocks, pin=True)
+            payload = flat.to(self.device, non_blocking=True)
+        with metrics.phase("torch.lz4_parse", len(flat)):
+            batch = parse_batch(payload, offsets, out_sizes)
+        lens = batch["out_len_host"].astype(np.int64)
+        with metrics.phase("torch.replay", int(lens.sum())):
+            out = replay(*(batch[k] for k in REPLAY_ARGS), n_out=batch["n_out"])
+        with metrics.phase("torch.lz4_trim", int(lens.sum())):
+            keep = torch.arange(batch["n_out"], device=self.device) < \
+                batch["out_len"][:len(blocks), None]
+            host = torch.empty(int(lens.sum()), dtype=torch.uint8, pin_memory=True)
+            host.copy_(out[:len(blocks)].masked_select(keep))
+            view = host.numpy()
+            ends = np.cumsum(lens)
+            return [view[e - n:e].tobytes() for e, n in zip(ends.tolist(), lens.tolist())]

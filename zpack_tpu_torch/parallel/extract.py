@@ -4,10 +4,11 @@ Counterpart of ``zpack_tpu/parallel/extract.py``.
 
 * :func:`decompress_lz4f_batched`: the frame structure is walked on the
   host (magic, descriptor, header checksum, block checksums, content
-  checksum), and every compressed block of every frame replays in one
-  batched launch of the port's replayer.  Frames with linked blocks raise,
-  because their history makes decoding sequential; the codec sends those
-  to the host decoder before calling here.
+  checksum), and every compressed block of every frame is parsed and
+  replayed in one batch by the port's replayer (on a GPU, both on the
+  card).  Frames with linked blocks raise, because their history makes
+  decoding sequential; the codec sends those to the host decoder before
+  calling here.
 * :func:`decompress_zstd_device`: the host walks frame and block headers
   (:func:`walk_zstd`, a few bytes per block), then the device decodes every
   Huffman literal stream, every FSE sequence section and every repeat
@@ -124,17 +125,20 @@ def walk_lz4f(data: bytes):
 def decompress_lz4f_batched(data: bytes, max_out: int | None = None, *,
                             device) -> bytes:
     """Batched lz4f frame decode: frames walked on the host, every
-    compressed independent block replayed in one launch on ``device``."""
-    pieces, comp_blocks, comp_bounds, hash_spans = walk_lz4f(data)
+    compressed independent block parsed and replayed in one batch on
+    ``device``."""
+    with metrics.phase("torch.lz4f_walk", len(data)):
+        pieces, comp_blocks, comp_bounds, hash_spans = walk_lz4f(data)
     decoded = DeviceLZ4Replayer(device).decompress_blocks(comp_blocks, comp_bounds)
-    parts = [p[1] if p[0] == "raw" else decoded[p[1]] for p in pieces]
-    for p0, cnt, chk in hash_spans:
-        h = XXH32State(0)
-        for part in parts[p0 : p0 + cnt]:
-            h.update(part)
-        if h.digest() != chk:
-            raise DecompressError("lz4 content checksum mismatch")
-    out = b"".join(parts)
+    with metrics.phase("torch.lz4f_join", len(pieces)):
+        parts = [p[1] if p[0] == "raw" else decoded[p[1]] for p in pieces]
+        for p0, cnt, chk in hash_spans:
+            h = XXH32State(0)
+            for part in parts[p0 : p0 + cnt]:
+                h.update(part)
+            if h.digest() != chk:
+                raise DecompressError("lz4 content checksum mismatch")
+        out = b"".join(parts)
     if max_out is not None and len(out) > max_out:
         raise DecompressError("lz4 frame output exceeds expected size")
     return out

@@ -19,7 +19,10 @@
    block parse that builds that batch on the card against ``build_batch``
    on the main path's blocks and on the batches of
    ``kernels/lz4_parse_cases.py`` (length edges, the count bound, a row
-   above the stage, every error in the host parse's order; exact);
+   above the stage, every error in the host parse's order, offset errors
+   before later chain errors, many tiny rows beside rows at and above the
+   stage; exact), its walk's chain and values steps timed apart, and the
+   walkers resident at once printed beside the blocks;
 4. XXH3: holds the many-stream kernel against its plain version and the
    native host hash on 128 streams of 512 KiB and on 10,011 streams of
    241..65536 bytes, and the single-stream kernel on the 64 MiB corpus and
@@ -102,7 +105,6 @@ phase fails.  It imports nothing of jax and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import os
 import subprocess
@@ -339,10 +341,12 @@ def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz
 def phase_lz4_parse(corpus: bytes, device, lz4_torch, extract, DeviceCompressor) -> dict:
     """The CUDA block parse against ``build_batch`` on the main path's
     blocks and on every batch of ``kernels/lz4_parse_cases.py`` (tables
-    exact, errors the same message); the wrapper, the walk and the layout
-    timed by CUDA events, ``build_batch`` by the host clock."""
+    exact, errors the same message); the wrapper, the walk (its launch, and
+    its chain and values steps each alone) and the layout timed by CUDA
+    events, ``build_batch`` by the host clock; the walkers resident at once
+    beside the blocks."""
     from zpack_tpu_torch.errors import DecompressError
-    from zpack_tpu_torch.kernels import _build, lz4_parse_cases
+    from zpack_tpu_torch.kernels import lz4_parse_cases
 
     frame = DeviceCompressor(device).compress(corpus)
     _, blocks, bounds, _ = extract.walk_lz4f(frame)
@@ -389,25 +393,37 @@ def phase_lz4_parse(corpus: bytes, device, lz4_torch, extract, DeviceCompressor)
           f"{len(lz4_parse_cases.cases())} batches, the same errors")
     ms = cuda_ms(lambda: lz4_torch.parse_batch(payload, offsets, bounds), 10)
     walk = lz4_torch._parse_walk(payload, offsets)
+    info = walk["info"].clone()
     walk_ms = cuda_ms(lambda: lz4_torch._parse_walk(payload, offsets), 10)
+    launch_ms = cuda_ms(lambda: lz4_torch._walk_launch(payload, walk, 3), 10)
+    chain_ms = cuda_ms(lambda: lz4_torch._walk_launch(payload, walk, 1), 10)
+    values_ms = cuda_ms(lambda: lz4_torch._walk_launch(payload, walk, 2), 10)
+    torch.cuda.synchronize()
+    if not torch.equal(walk["info"], info):
+        raise AssertionError("lz4_parse: the chain and values steps apart differ from both at once")
     bp, S = want["seg_start"].shape
     L = want["lit_bytes"].shape[1]
     layout_ms = cuda_ms(lambda: lz4_torch._parse_layout(payload, walk, bp, S, L), 10)
-    step_ns = walk_ms * 1e6 / max(longest, 1)
-    stage = lz4_torch.parse_stage(np.diff(offsets))
-    per_sm = ctypes.c_int(0)
-    _build.check(_build.lib().zp_lz4_parse_occupancy(stage, ctypes.byref(per_sm)), "lz4_parse")
+    plan = walk["plan"]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    print(f"lz4_parse walk: longest row {int(np.diff(offsets).max())} bytes, staged up to "
-          f"{stage}: {per_sm.value} CTAs an SM x {sms} SMs for {len(blocks)} blocks")
+    print(f"lz4_parse walk: longest row {int(np.diff(offsets).max())} bytes; {len(blocks)} blocks "
+          f"in {plan['ctas']} CTAs of {plan['group']} rows, a {plan['smem']}-byte stage, "
+          f"{plan['per_sm']} CTAs an SM x {sms} SMs: {plan['resident']} walkers resident at "
+          f"once for {len(blocks)} blocks ({plan['waves']} wave(s))")
     print(f"lz4_parse (main-path blocks): through the wrapper {ms:.3f} ms, walk {walk_ms:.3f} ms "
-          f"({step_ns:.1f} ns a step of the longest block), layout {layout_ms:.3f} ms; "
+          f"(its launch {launch_ms:.3f}; the chain step alone {chain_ms:.3f}, "
+          f"{chain_ms * 1e6 / max(longest, 1):.1f} ns a step of the longest block; the values "
+          f"step alone {values_ms:.3f}; each with its staging), layout {layout_ms:.3f} ms; "
           f"build_batch {plain_ms:.3f} ms (host)")
     outs = [got[k] for k in lz4_torch.REPLAY_ARGS]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **bound(tensor_bytes(payload, outs) + 16 * len(blocks), chain_steps=longest),
-            "walk_ms": walk_ms, "layout_ms": layout_ms, "walk_ns_per_step": step_ns,
-            "longest_block_sequences": longest}
+            "walk_ms": walk_ms, "walk_launch_ms": launch_ms, "chain_ms": chain_ms,
+            "values_ms": values_ms, "layout_ms": layout_ms,
+            "walk_ns_per_step": walk_ms * 1e6 / max(longest, 1),
+            "chain_ns_per_step": chain_ms * 1e6 / max(longest, 1),
+            "longest_block_sequences": longest, "blocks": len(blocks),
+            "walkers_resident": plan["resident"], "rows_a_cta": plan["group"]}
 
 
 XXH3_EDGES = (241, 255, 256, 257, 1024, 1025, 1088, 1089, 16384, 16385, 65536)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in one run.
 
-    python3 scripts/torch_ab.py [--extract | --lz4-extract] PARENT_DIR CHANGE_DIR
+    python3 scripts/torch_ab.py [--extract | --lz4-extract | --lz4-parse] PARENT_DIR CHANGE_DIR
 
 Runs parent, change, change, parent, each in a process of its own with its
 own build of the kernels: two checkouts are compared only inside one run on
@@ -20,7 +20,10 @@ one card.  Each side drives, through its own ``chip_smoke.py``'s phases,
 With ``--extract`` each side runs the last two only (the zstd extract
 kernels and reads), for a change to the decoders.  With ``--lz4-extract``
 each side runs the LZ4 archive round trip only (``phase_main_path``, two
-runs of create and extract), for a change to the LZ4 extract path.
+runs of create and extract), for a change to the LZ4 extract path.  With
+``--lz4-parse`` each side runs its LZ4 block parse phase (the kernel
+against ``build_batch``, the wrapper, the walk and the layout timed), then
+the round trip, for a change to the parse.
 
 Prints the card's name and power limit first, then each side's lines as
 the phases print them.  Needs a CUDA GPU; exits non-zero if a side fails.
@@ -49,6 +52,14 @@ if MODE == "--lz4-extract":
     native.get_lib()
     cs.phase_main_path(corpus, dev, lz4_torch)
     sys.exit(0)
+if MODE == "--lz4-parse":
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.kernels import _build
+    _build.lib()
+    native.get_lib()
+    cs.phase_lz4_parse(corpus, dev, lz4_torch, extract, DeviceCompressor)
+    cs.phase_main_path(corpus, dev, lz4_torch)
+    sys.exit(0)
 if MODE != "--extract":
     cs.phase_tokenize(corpus, dev, lz4_torch)
     cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
@@ -71,7 +82,7 @@ KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "
 
 def main() -> int:
     args = sys.argv[1:]
-    mode = args[0] if args[:1] in (["--extract"], ["--lz4-extract"]) else None
+    mode = args[0] if args[:1] in (["--extract"], ["--lz4-extract"], ["--lz4-parse"]) else None
     if mode:
         args = args[1:]
     if len(args) != 2:

@@ -601,6 +601,54 @@ def test_parse_kernel_matches_build_batch_on_a_corpus_frame(cuda):
     assert err is None and got["seg_start"].shape[0] == 64
 
 
+@pytest.mark.parametrize("group", lz4_torch.PARSE_GROUPS)
+@pytest.mark.parametrize("name", ["mixed: tiny and empty rows, rows at and above the stage cap",
+                                  "mixed: every valid block", "mixed: every block"])
+def test_parse_kernel_matches_build_batch_in_every_grouping(cuda, monkeypatch, name, group):
+    """The walk with 1, 2, 4 or 8 rows a CTA (staged rows of every size
+    beside empty rows and rows read from global memory in one CTA): the
+    tables of ``build_batch``, or its first error."""
+    monkeypatch.setattr(lz4_torch, "PARSE_GROUPS", (group,))
+    case = _PARSE_CASES[name]
+    _, err = _hold_parse(cuda, case.blocks, case.sizes)
+    assert err == case.expect
+
+
+def test_parse_walk_steps_apart_equal_both_at_once(cuda):
+    """The chain alone, then the values alone from its scratch, give the
+    info and the records (up to each row's error) of one launch of both."""
+    case = _PARSE_CASES["mixed: every block"]
+    flat, offsets = lz4_torch.pack_blocks(case.blocks)
+    payload = flat.to(cuda)
+    w = lz4_torch._parse_walk(payload, offsets)
+    info, rec = w["info"].cpu().numpy(), w["rec"].cpu().numpy()
+    w["info"].fill_(-1)
+    w["rec"].fill_(-1)
+    lz4_torch._walk_launch(payload, w, 1)
+    lz4_torch._walk_launch(payload, w, 2)
+    torch.cuda.synchronize()
+    assert np.array_equal(w["info"].cpu().numpy(), info)
+    assert (info[:, 3] > 0).sum() > 10
+    got, off = w["rec"].cpu().numpy(), w["rec_off"].cpu().numpy()
+    for b, n in enumerate(info[:, 0]):
+        assert np.array_equal(got[off[b]:off[b] + n], rec[off[b]:off[b] + n]), b
+
+
+def test_parse_walk_holds_a_corpus_frame_in_one_wave(cuda):
+    """The blocks of an 8 MiB frame: every walker resident at once, in CTAs
+    of the plan's rows, and the records as ``build_batch`` lays them out."""
+    data = _text(1 << 22, 53) + np.random.default_rng(54).integers(
+        0, 256, 1 << 22, dtype=np.uint8).tobytes()
+    frame = DeviceCompressor(cuda).compress(data)
+    _, blocks, bounds, _ = extract.walk_lz4f(frame)
+    flat, offsets = lz4_torch.pack_blocks(blocks)
+    plan = lz4_torch._parse_walk(flat.to(cuda), offsets)["plan"]
+    assert plan["waves"] == 1 and plan["resident"] == len(blocks)
+    assert plan["ctas"] == -(-len(blocks) // plan["group"])
+    got, err = _hold_parse(cuda, blocks, bounds)
+    assert err is None
+
+
 def test_lz4_extract_on_cuda_runs_no_host_parse(cuda, monkeypatch):
     """On the CUDA route the per-token Python parse never runs: the
     replayer decodes with it raising, through the parse and replay kernels."""

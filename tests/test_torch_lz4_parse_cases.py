@@ -1,11 +1,14 @@
 """The LZ4 block parse on the blocks of
 ``zpack_tpu_torch/kernels/lz4_parse_cases.py``, on the CPU: the port's
 plain version (``lz4_torch.build_batch``) against the JAX package's parse
-and replayer and against the host decoder; and a numpy statement of the
-CUDA parse's two passes (a record a sequence at the bound stride, then the
-tables by scans over tiles of 256) against ``build_batch``.  All integer:
-tolerance 0; the errors are each side's own ``DecompressError``, message
-for message."""
+and replayer and against the host decoder; a numpy statement of the CUDA
+parse's two passes (the walk's two steps, the token chain and then the
+values with the offset checks, a record a sequence at the bound stride;
+then the tables by scans over tiles of 256) against ``build_batch`` and,
+with the JAX parse's rule for an offset before the block start, against
+the JAX tables; and the packing of rows into the walk's CTAs.  All
+integer: tolerance 0 (exact); the errors are each side's own
+``DecompressError``, message for message."""
 
 import numpy as np
 import pytest
@@ -78,12 +81,104 @@ def _jax_tables(blocks, sizes):
 # ---------------------------------------------------------------------------
 
 
-def walk_np(payload: bytes, offsets):
-    """Pass 1: each row walked token by token (thread 0's loop, the checks
-    of ``parse_block_sequences`` in its order, int32 lengths), one record
-    ``(lit_len, offset, match_len, literal position)`` a sequence at row
-    ``b``'s offset ``sum(seq_bound(n_i) for i < b)``; per row ``(n_seq,
-    literal total, out_len, error code)``."""
+def _ext(src: bytes, q: int, n: int):
+    """A length's extension bytes from ``q``: (the sum, the next position),
+    or (None, q) if the row ends inside them."""
+    total = 0
+    while True:
+        if q >= n:
+            return None, q
+        c = src[q]
+        q += 1
+        total += c
+        if c != 255:
+            return total, q
+
+
+def chain_np(src: bytes):
+    """Step a, the walker: the token chain alone.  The token positions of
+    the whole sequences, the first chain error (1 truncated literal length,
+    2 literal overrun, 3 truncated offset, 6 truncated match length; 0
+    none) and, for code 6, the failing token's position.  No offset is
+    read: a zero or far offset does not stop the chain."""
+    n = len(src)
+    pos, tpos = 0, []
+    while pos < n:
+        t = src[pos]
+        nxt = pos + 3 + (t >> 4)
+        after = nxt + (t & 15 == 15)  # behind a match-length byte, if any
+        if t >> 4 < 15 and after < n and not (t & 15 == 15 and src[nxt] == 255):
+            tpos.append(pos)  # the common token: one step, no check of its own
+            pos = after
+            continue
+        ll, p = t >> 4, pos + 1
+        if ll == 15:
+            ext, p = _ext(src, p, n)
+            if ext is None:
+                return tpos, 1, None
+            ll += ext
+        if ll > n - p:
+            return tpos, 2, None
+        p += ll
+        if p < n:
+            if n - p < 2:
+                return tpos, 3, None
+            p += 2
+            if t & 15 == 15:
+                ext, p = _ext(src, p, n)
+                if ext is None:
+                    return tpos, 6, pos
+        tpos.append(pos)
+        pos = p
+    return tpos, 0, None
+
+
+def values_np(src: bytes, tpos, code: int, fail_pos, clamp: bool = False):
+    """Step b, the whole CTA: each sequence's ``(lit_len, offset,
+    match_len, literal position)`` from its token; the output before it by
+    an exclusive sum of ``lit_len + match_len`` over the whole sequences
+    (the kernel's tiles of 256 with a carry give the same sums); the offset
+    checks (4 zero, 5 beyond the output so far; ``clamp`` leaves 5 out, as
+    the JAX parse does), on the code-6 token too.  The row's error is the
+    first by sequence index, an offset error before the chain error at the
+    same index.  Returns the records and ``(n_seq, literal total, out_len,
+    error code)`` over the sequences before the error."""
+    n, K = len(src), len(tpos)
+    vals = []
+    for s, p in enumerate(tpos + ([fail_pos] if code == 6 else [])):
+        t = src[p]
+        ll, q = t >> 4, p + 1
+        if ll == 15:
+            ext, q = _ext(src, q, n)
+            ll += ext
+        lp, q = q, q + ll
+        off = ml = 0
+        if q < n:
+            off = src[q] | src[q + 1] << 8
+            if s < K:
+                ml = (t & 15) + 4 + (_ext(src, q + 2, n)[0] if t & 15 == 15 else 0)
+        vals.append((ll, off, ml, lp, q < n))
+    v = np.array(vals, np.int64).reshape(-1, 5)
+    ll, off, ml, has_off = v[:, 0], v[:, 1], v[:, 2], v[:, 4] == 1
+    whole = np.arange(len(v)) < K
+    seg, lit = np.where(whole, ll + ml, 0), np.where(whole, ll, 0)
+    seg_before, lit_before = np.cumsum(seg) - seg, np.cumsum(lit) - lit
+    bad = np.where(has_off & (off == 0), 4,
+                   np.where(has_off & (off > seg_before + ll) & (not clamp), 5, 0))
+    hit = np.flatnonzero(bad)
+    if hit.size:
+        i = int(hit[0])
+        info = (i, lit_before[i], seg_before[i], bad[i])
+    else:
+        info = (K, lit.sum(), seg.sum(), code)
+    assert info[2] < 2**31
+    return v[:K, :4].astype(np.int32), info
+
+
+def walk_np(payload: bytes, offsets, clamp: bool = False):
+    """Pass 1, both steps on every row: the records at row ``b``'s first
+    slot ``sum(seq_bound(n_i) for i < b)`` and ``info (B, 4)``.  Each row's
+    positions (and the code-6 token's) fit in its ``seq_bound`` slots."""
     lens = np.diff(offsets)
     bounds = [lz4_torch.seq_bound(int(n)) for n in lens]
     rec_off = np.concatenate([[0], np.cumsum(bounds)[:-1]]).astype(np.int64)
@@ -91,63 +186,10 @@ def walk_np(payload: bytes, offsets):
     info = np.zeros((len(lens), 4), np.int32)
     for b, (start, n) in enumerate(zip(offsets[:-1].tolist(), lens.tolist())):
         src = payload[start:start + n]
-        pos = out_len = lits = k = err = 0
-        while pos < n:
-            token = src[pos]
-            pos += 1
-            ll = token >> 4
-            if ll == 15:
-                while True:
-                    if pos >= n:
-                        err = 1
-                        break
-                    c = src[pos]
-                    pos += 1
-                    ll += c
-                    if c != 255:
-                        break
-                if err:
-                    break
-            if ll > n - pos:
-                err = 2
-                break
-            lp = pos
-            pos += ll
-            out_len += ll
-            lits += ll
-            if pos == n:
-                rec[rec_off[b] + k] = (ll, 0, 0, lp)
-                k += 1
-                break
-            if n - pos < 2:
-                err = 3
-                break
-            off = src[pos] | src[pos + 1] << 8
-            pos += 2
-            if off == 0:
-                err = 4
-                break
-            if off > out_len:
-                err = 5
-                break
-            ml = (token & 15) + 4
-            if token & 15 == 15:
-                while True:
-                    if pos >= n:
-                        err = 6
-                        break
-                    c = src[pos]
-                    pos += 1
-                    ml += c
-                    if c != 255:
-                        break
-                if err:
-                    break
-            out_len += ml
-            rec[rec_off[b] + k] = (ll, off, ml, lp)
-            k += 1
-        assert k <= bounds[b] and out_len < 2**31
-        info[b] = (k, lits, out_len, err)
+        tpos, code, fail_pos = chain_np(src)
+        assert len(tpos) + (code == 6) <= bounds[b]
+        r, info[b] = values_np(src, tpos, code, fail_pos, clamp)
+        rec[rec_off[b]:rec_off[b] + len(r)] = r
     return rec, rec_off, info
 
 
@@ -183,11 +225,13 @@ def layout_np(payload: bytes, offsets, rec, rec_off, info, bp, S, L):
     return t
 
 
-def parse_np(blocks, sizes):
-    """Both passes and the read-back between them, as the wrapper runs them."""
+def parse_np(blocks, sizes, clamp: bool = False):
+    """Both passes and the read-back between them, as the wrapper runs them
+    (with ``clamp``, the JAX parse's rule: an offset before the block start
+    is kept)."""
     payload = b"".join(blocks)
     offsets = np.concatenate([[0], np.cumsum([len(b) for b in blocks])]).astype(np.int64)
-    rec, rec_off, info = walk_np(payload, offsets)
+    rec, rec_off, info = walk_np(payload, offsets, clamp)
     bad = np.flatnonzero(info[:, 3])
     if bad.size:
         raise DecompressError(lz4_torch.PARSE_ERRORS[info[bad[0], 3] - 1])
@@ -236,7 +280,9 @@ def test_build_batch_matches_jax_parse(name):
     want, jerr = _outcome(lambda: _jax_tables(case.blocks, case.sizes))
     assert err == case.expect
     if case.expect == CLAMPED:
-        assert jerr is None
+        # the JAX parse reads on past that offset: the row's next error, or none
+        assert jerr != CLAMPED
+        assert jerr == _outcome(lambda: parse_np(case.blocks, case.sizes, clamp=True))[1]
         return
     assert jerr == err
     if err is None:
@@ -291,6 +337,20 @@ def test_kernel_passes_in_numpy_match_build_batch(name):
         _assert_tables_equal(got, _tables(want))
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_passes_in_numpy_with_the_clamp_match_jax_parse(name):
+    """The numpy statement with the JAX parse's rule (an offset before the
+    block start is kept, for the replay to clamp) gives the tables the JAX
+    replayer builds from ``lz4_jax.parse_block_sequences``, or its error,
+    on every case: the chain and the deferred checks are the JAX walk's."""
+    case = CASES[name]
+    got, err = _outcome(lambda: parse_np(case.blocks, case.sizes, clamp=True))
+    want, jerr = _outcome(lambda: _jax_tables(case.blocks, case.sizes))
+    assert err == jerr
+    if err is None:
+        _assert_tables_equal(got, want)
+
+
 def test_sequence_count_never_exceeds_the_bound():
     """The records' stride: on every row of every case, the sequences (and
     the records written before an error) fit in ``seq_bound``, and the
@@ -320,3 +380,67 @@ def test_parse_batch_on_cpu_is_build_batch(name):
         _assert_tables_equal({k: got[k].numpy() for k in lz4_torch.REPLAY_ARGS}
                              | {"n_out": got["n_out"]}, _tables(want))
         assert np.array_equal(got["out_len_host"], want["out_len"][:len(case.blocks)])
+
+
+PACKED = ["mixed: tiny and empty rows, rows at and above the stage cap", "mixed: every block",
+          "corpus blocks"]
+
+
+@pytest.mark.parametrize("group", lz4_torch.PARSE_GROUPS)
+@pytest.mark.parametrize("name", PACKED)
+def test_parse_plan_places_every_row_once(monkeypatch, name, group):
+    """Each row in one CTA of at most ``group``; a staged row's place is
+    16-aligned, holds its bytes at any alignment and the walker's read
+    ahead inside the stage, and no two places overlap; empty rows and rows
+    above the stage cap have none (read from global memory)."""
+    monkeypatch.setattr(lz4_torch, "PARSE_GROUPS", (group,))
+    lens = np.array([len(b) for b in CASES[name].blocks])
+    plan = lz4_torch.parse_plan(lens, lambda smem: 1, 1)
+    slots, smem = plan["slots"], plan["smem"]
+    rows, at = slots[..., 0], slots[..., 1]
+    assert slots.shape == (-(-len(lens) // group), group, 2)
+    assert sorted(rows[rows >= 0].tolist()) == list(range(len(lens)))
+    n = np.where(rows >= 0, lens[np.maximum(rows, 0)], 0)
+    staged = (n > 0) & (n <= lz4_torch.PARSE_STAGE_CAP)
+    assert np.array_equal(at >= 0, staged) and (at[staged] % 16 == 0).all()
+    assert (at + n + 32 <= smem)[staged].all()  # bytes at up to 15 in, then 18 ahead
+    for g in range(len(slots)):
+        places = sorted((at[g, w], n[g, w]) for w in range(group) if staged[g, w])
+        assert all(a + k + 15 <= b for (a, k), (b, _) in zip(places, places[1:]))
+    if group == 1:
+        assert smem == 16 * ((lens[lens <= lz4_torch.PARSE_STAGE_CAP].max() + 30) // 16) + 32
+
+
+def _ctas_per_sm(smem: int) -> int:
+    """An H100 SM's CTAs of 256 threads with ``smem`` bytes of stage: 2,048
+    threads, 232,448 bytes of shared memory, 1 KiB of it reserved a CTA,
+    and the walk's static part (under 256 bytes)."""
+    return min(8, 232448 // (smem + 1024 + 256))
+
+
+def test_parse_plan_holds_the_main_path_in_one_wave():
+    """683 rows of the main path's sizes (25.6 to 27.7 KB and one of 40.3
+    KB, the native encoder's blocks of the 64 MiB corpus) on 132 SMs: one
+    row a CTA fits 5 CTAs an SM, 660 walkers, and takes two waves; two rows
+    a CTA, the largest beside the smallest, fit 4 and hold all 683."""
+    lens = np.append(np.random.default_rng(5).integers(25_599, 27_710, 682), 40_309)
+    plan = lz4_torch.parse_plan(lens, _ctas_per_sm, 132)
+    assert (plan["group"], plan["ctas"], plan["per_sm"]) == (2, 342, 4)
+    assert plan["waves"] == 1 and plan["resident"] == 683
+    assert plan["smem"] < 2 * 28_000
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(lz4_torch, "PARSE_GROUPS", (1,))
+        one = lz4_torch.parse_plan(lens, _ctas_per_sm, 132)
+    assert (one["per_sm"], one["waves"], one["resident"]) == (5, 2, 660)
+
+
+def test_parse_plan_refuses_a_group_that_does_not_fit(monkeypatch):
+    """Eight rows at the stage cap need more shared memory than a CTA has:
+    left to the plan, a smaller grouping is taken; with that one alone, the
+    plan raises."""
+    lens = np.full(8, lz4_torch.PARSE_STAGE_CAP)
+    plan = lz4_torch.parse_plan(lens, _ctas_per_sm, 132)
+    assert plan["group"] == 1 and plan["resident"] == 8
+    monkeypatch.setattr(lz4_torch, "PARSE_GROUPS", (8,))
+    with pytest.raises(ValueError):
+        lz4_torch.parse_plan(lens, _ctas_per_sm, 132)

@@ -122,7 +122,7 @@ def lib() -> ctypes.CDLL:
             cdll.zp_lz4_replay.restype = i
             cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p, i, p, p, p]
             cdll.zp_lz4_parse_walk.restype = i
-            cdll.zp_lz4_parse_walk.argtypes = [p, p, p, i, i, p, p, p]
+            cdll.zp_lz4_parse_walk.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
             cdll.zp_lz4_parse_occupancy.restype = i
             cdll.zp_lz4_parse_occupancy.argtypes = [i, p]
             cdll.zp_lz4_parse_layout.restype = i

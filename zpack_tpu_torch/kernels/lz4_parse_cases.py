@@ -7,6 +7,15 @@ over its declared size, a parse error in a later block beside a size error
 in an earlier one, a row longer than the CUDA parse stages in shared memory
 (``lz4_torch.PARSE_STAGE_CAP``), and mixed batches of all of them.
 
+The CUDA walk reads a row in two steps: a walker that follows the token
+chain without loading an offset, then the whole CTA reading the values and
+checking the offsets.  So the cases also hold what the deferred checks make
+hard: an offset error followed, later in the row, by a chain error, by a
+literal overrun or by garbage that would send a walker far; a zero offset
+on a token whose match length is truncated; an offset error past the first
+tile of 256 sequences; and many tiny and empty rows beside rows at and
+above the stage cap, for the packing of rows into CTAs.
+
 :func:`cases` is the one definition; the CPU tests hold ``build_batch``
 against the JAX package, the host decoder and a numpy statement of the
 CUDA parse's two passes on it, and the GPU tests and ``chip_smoke.py`` hold
@@ -124,14 +133,62 @@ def _above_cap(rng) -> bytes:
     return blk
 
 
+def _past_tile(off: int) -> bytes:
+    """300 good sequences, a sequence with offset ``off`` (0, or beyond the
+    output) at index 300, past the first tile, then a truncated offset."""
+    return encode([(b"a", 1, 4)] * 300 + [(b"b", off, 4)]) + b"\xf0"
+
+
+def _exact(n: int, rng) -> bytes:
+    """A block of exactly ``n`` bytes: 2,000 random short sequences, then
+    one literal run (one more short sequence where no run length fits)."""
+    lits = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    seqs, out = [(lits[:4], 4, 8)], 12
+    while len(seqs) < 2000:
+        ll = int(rng.integers(0, 6))
+        seqs.append((lits[:ll], int(rng.integers(1, min(out + ll, 65535) + 1)),
+                     int(rng.integers(4, 13))))
+        out += ll + seqs[-1][2]
+    while True:
+        head = encode(seqs)[:-1]  # without its empty last token
+        r = n - len(head)
+        for ll in range(max(r - 3 - r // 255, 0), r):
+            tail = encode([], lits[:ll])
+            if len(tail) == r:
+                return head + tail
+        seqs.append((lits[:1], 1, 4))
+
+
+def _tiny_rows(rng) -> list:
+    """250 rows of 0 to about 40 bytes, the empty and one-token blocks among
+    them, and a block of exactly the stage cap and one a byte above it."""
+    lits = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    rows = []
+    for i in range(250):
+        seqs = [(lits[:int(rng.integers(1, 5))], 1, int(rng.integers(4, 20)))
+                for _ in range(int(rng.integers(0, 4)))]
+        rows.append((b"", b"\x00", b"\x10a")[i] if i < 3 else
+                    encode(seqs, lits[:int(rng.integers(0, 20))]))
+    at, above = _exact(PARSE_STAGE_CAP, rng), _exact(PARSE_STAGE_CAP + 1, rng)
+    assert (len(at), len(above)) == (PARSE_STAGE_CAP, PARSE_STAGE_CAP + 1)
+    return rows[:120] + [at] + rows[120:] + [above]
+
+
 #: one truncated or malformed block per error, with the message it raises
 BAD = {
     "truncated literal length": [b"\xf0", b"\xf0\xff", b"\xf0\xff\xff"],
     "literal run overruns input": [b"\x50abc", b"\xf0\x00" + b"x" * 14],
     "truncated match offset": [b"\x11a\x01", encode([(b"ab", 1, 4)])[:4]],
-    "zero match offset": [b"\x10a\x00\x00\x00"],
+    "zero match offset": [b"\x10a\x00\x00\x00",
+                          b"\x10a\x00\x00\xf0",  # then a truncated literal length
+                          b"\x1fa\x00\x00",  # not its truncated match length
+                          b"\x10a\x00\x00" + b"\xff" * 3000,  # then a long garbage run
+                          _past_tile(0)],
     "match offset beyond output start": [bytes([0x10, 0x61, 0x05, 0x00, 0x50]) + b"bcdef",
-                                         encode([(b"abc", 4, 4)])],
+                                         encode([(b"abc", 4, 4)]),
+                                         bytes([0x10, 0x61, 0x05, 0x00, 0x50]) + b"bc",
+                                         bytes([0x10, 0x61, 0x05, 0x00]) + b"\xff" * 3000,
+                                         _past_tile(60000)],
     "truncated match length": [b"\x1fa\x01\x00", b"\x1fa\x01\x00\xff",
                                encode([(b"ab", 1, 4)])[:-1] + b"\x1fa\x01\x00\xff\xff"],
 }
@@ -162,9 +219,19 @@ def cases(seed: int = 0) -> dict:
     out["declared size exactly"] = Case(good, sizes, None)
     out["parse error later beside a size error earlier"] = Case(
         good + [b"\x10a\x00\x00\x00"], [sizes[0] - 1, sizes[1], 100], "zero match offset")
+    # deferred offset checks beside a chain error at the same sequence or in
+    # another row (the host decoder's walk checks the offset's reach last)
+    out["offset beyond on a truncated match length"] = Case(
+        good + [b"\x1fa\x05\x00"], [1 << 16] * 3, "match offset beyond output start")
+    out["a chain error in a row before an offset error in a later one"] = Case(
+        good + [b"\x10a\x01", b"\x10a\x00\x00\x00"], [1 << 16] * 4, "truncated match offset")
+    out["an offset error in a row before a chain error in a later one"] = Case(
+        good + [_past_tile(60000), b"\xf0\xff"], [1 << 16] * 4,
+        "match offset beyond output start")
     # every valid block above in one batch, then every block of every case
     valid = [b for c in out.values() if c.expect is None for b in c.blocks]
     out["mixed: every valid block"] = _valid(valid)
+    out["mixed: tiny and empty rows, rows at and above the stage cap"] = _valid(_tiny_rows(rng))
     everything = [(b, s) for c in list(out.values()) for b, s in zip(c.blocks, c.sizes)]
     first_bad = next(msg for msg in BAD)  # the first bad block in order raises
     out["mixed: every block"] = Case([b for b, _ in everything], [s for _, s in everything],

@@ -30,6 +30,8 @@ its rows (:func:`est_plain`).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -553,6 +555,13 @@ PARSE_ERRORS = ("truncated literal length", "literal run overruns input",
 PARSE_STAGE_CAP = 64 << 10
 #: rows must be shorter than this, so that every length fits in int32
 PARSE_MAX_ROW = 1 << 23
+#: the rows a CTA of the CUDA walk may hold (one walker warp each, 8 warps),
+#: the groupings :func:`parse_plan` chooses from
+PARSE_GROUPS = (1, 2, 4, 8)
+#: stage bytes past a CTA's last row: the walker reads a token ahead
+PARSE_AHEAD = 32
+#: the stage a walk CTA may take: 227 KiB, less 1 KiB for its static part
+PARSE_SMEM_MAX = 232448 - 1024
 
 
 def seq_bound(n: int) -> int:
@@ -561,11 +570,68 @@ def seq_bound(n: int) -> int:
     return (n - 1) // 3 + 1 if n > 0 else 0
 
 
-def parse_stage(lens) -> int:
-    """The bytes of the longest row the CUDA parse stages: the longest of
-    ``lens`` up to :data:`PARSE_STAGE_CAP`."""
-    lens = np.asarray(lens)
-    return int(lens[lens <= PARSE_STAGE_CAP].max(initial=0))
+def _places(lens: np.ndarray) -> np.ndarray:
+    """Each row's place in a walk CTA's stage: ``16 * ((n + 30) // 16)``
+    bytes (its 16-byte chunks at any alignment), none for an empty row or
+    one above :data:`PARSE_STAGE_CAP` (read from global memory)."""
+    return np.where((lens > 0) & (lens <= PARSE_STAGE_CAP), 16 * ((lens + 30) // 16), 0)
+
+
+def _deal(sorted_rows: np.ndarray, group: int, fill) -> np.ndarray:
+    """The rows, sorted by size, dealt to ``ceil(B / group)`` CTAs in a snake
+    (down the CTAs, then back up): ``(G, group)``, ``fill`` past the last."""
+    G = -(-len(sorted_rows) // group)
+    deal = np.full(G * group, fill, sorted_rows.dtype)
+    deal[:len(sorted_rows)] = sorted_rows
+    deal = deal.reshape(group, G)
+    deal[1::2] = deal[1::2, ::-1]
+    return deal.T
+
+
+def _pack(order: np.ndarray, places: np.ndarray, group: int):
+    """The rows in ``order`` (largest first) dealt to CTAs of ``group``
+    (:func:`_deal`), so the CTAs' stages come out near the mean, with their
+    ``places`` in that order.  Returns ``slots (G, group, 2)`` int64, each
+    CTA's rows (-1: none) and their offsets in its stage (-1: no place),
+    and the stage bytes a CTA needs (the largest CTA's, plus
+    :data:`PARSE_AHEAD`)."""
+    rows = _deal(order, group, -1)
+    place = _deal(places, group, 0)
+    slots = np.empty(rows.shape + (2,), np.int64)
+    slots[..., 0] = rows
+    slots[..., 1] = np.where(place > 0, np.cumsum(place, axis=1) - place, -1)
+    return slots, int(place.sum(1).max()) + PARSE_AHEAD
+
+
+def parse_plan(lens, ctas_per_sm, sms: int) -> dict:
+    """The CUDA walk's launch: the rows packed into CTAs by size, largest
+    beside smallest, in the grouping of :data:`PARSE_GROUPS` whose CTAs run
+    in the fewest waves on ``sms`` SMs (the smaller group on a tie);
+    ``ctas_per_sm(smem)`` is the walk's CTAs an SM holds with that stage.
+    Returns ``slots (G, group, 2)`` and ``smem`` (:func:`_pack`),
+    ``group``, ``ctas``, ``per_sm``, ``waves`` and ``resident``, the
+    walkers the first wave holds."""
+    lens = np.asarray(lens, np.int64)
+    order = np.argsort(-lens, kind="stable")
+    places = _places(lens)[order]
+    best = None
+    for g in PARSE_GROUPS:
+        smem = int(_deal(places, g, 0).sum(1).max()) + PARSE_AHEAD
+        per_sm = ctas_per_sm(smem) if smem <= PARSE_SMEM_MAX else 0
+        if per_sm < 1:
+            continue
+        ctas = -(-len(lens) // g)
+        waves = -(-ctas // (per_sm * sms))
+        if best is None or waves < best["waves"]:
+            best = {"group": g, "ctas": ctas, "per_sm": per_sm, "waves": waves}
+        if waves == 1:
+            break
+    if best is None:
+        raise ValueError(f"no grouping of {PARSE_GROUPS} rows a CTA fits the shared memory")
+    slots, smem = _pack(order, places, best["group"])
+    first = slots[:best["per_sm"] * sms, :, 0]
+    return {**best, "slots": slots, "smem": smem,
+            "resident": int(np.count_nonzero(first >= 0))}
 
 
 def pack_blocks(blocks: list[bytes], pin: bool = False):
@@ -589,10 +655,28 @@ def _batch_shape(n_seq, lit_total, out_len):
             _bucket(max(int(max(out_len)), 1), BUCKETS))
 
 
+_WALK_CTAS: dict = {}  # (device index, stage bytes) -> the walk's CTAs an SM
+
+
+def walk_ctas_per_sm(smem: int, dev: torch.device) -> int:
+    """The CUDA walk's CTAs that one SM of ``dev`` holds with ``smem``
+    bytes of stage (the CUDA occupancy query, cached)."""
+    key = (dev.index, smem)
+    if key not in _WALK_CTAS:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _build.check(_build.lib().zp_lz4_parse_occupancy(smem, ctypes.byref(out)),
+                         "lz4_parse")
+        _WALK_CTAS[key] = out.value
+    return _WALK_CTAS[key]
+
+
 def _parse_walk(payload: torch.Tensor, offsets: np.ndarray) -> dict:
-    """Launch pass 1 of the CUDA parse: the rows ``(B, 2)`` int64, each
-    row's first record, the records and ``info (B, 4)`` int32 ``(n_seq,
-    literal total, out_len, error code)``, all on the card."""
+    """Launch pass 1 of the CUDA parse (both steps): the rows ``(B, 2)``
+    int64, each row's first slot, the launch's :func:`parse_plan`, the
+    scratch (token positions, each row's chain result), the records and
+    ``info (B, 4)`` int32 ``(n_seq, literal total, out_len, error code)``,
+    all on the card."""
     dev = payload.device
     B = len(offsets) - 1
     lens = np.diff(offsets)
@@ -601,20 +685,39 @@ def _parse_walk(payload: torch.Tensor, offsets: np.ndarray) -> dict:
     if lens.max() >= PARSE_MAX_ROW:
         raise ValueError(f"a block of {int(lens.max())} bytes: the parse takes rows under "
                          f"{PARSE_MAX_ROW}")
-    bounds = np.array([seq_bound(int(n)) for n in lens], np.int64)
-    rec_off = np.zeros(B, np.int64)
-    np.cumsum(bounds[:-1], out=rec_off[1:])
-    w = {"rows": torch.from_numpy(np.stack([offsets[:-1], lens], 1)).to(dev),
-         "rec_off": torch.from_numpy(rec_off).to(dev),
-         "rec": torch.empty((max(int(bounds.sum()), 1), 4), dtype=torch.int32, device=dev),
+    plan = parse_plan(lens, lambda smem: walk_ctas_per_sm(smem, dev),
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+    # the rows, each row's first slot and the CTAs' slots, in one upload
+    meta = np.empty(3 * B + plan["slots"].size, np.int64)
+    meta[0:2 * B:2], meta[1:2 * B:2] = offsets[:-1], lens
+    bounds = np.where(lens > 0, (lens - 1) // 3 + 1, 0)
+    meta[2 * B] = 0
+    np.cumsum(bounds[:-1], out=meta[2 * B + 1:3 * B])
+    meta[3 * B:] = plan["slots"].ravel()
+    meta = torch.from_numpy(meta).to(dev)
+    n_slots = max(int(bounds.sum()), 1)
+    w = {"rows": meta[:2 * B], "rec_off": meta[2 * B:3 * B], "slots": meta[3 * B:],
+         "plan": plan,
+         "tpos": torch.empty(n_slots, dtype=torch.int32, device=dev),
+         "chain": torch.empty((B, 2), dtype=torch.int32, device=dev),
+         "rec": torch.empty((n_slots, 4), dtype=torch.int32, device=dev),
          "info": torch.empty((B, 4), dtype=torch.int32, device=dev)}
-    stage = parse_stage(lens)
+    _walk_launch(payload, w, 3)
+    return w
+
+
+def _walk_launch(payload: torch.Tensor, w: dict, steps: int) -> None:
+    """The walk kernel on :func:`_parse_walk`'s tensors: ``steps`` 1 the
+    chain alone, 2 the values alone (from the chain's scratch), 3 both."""
+    plan = w["plan"]
+    dev = payload.device
     with torch.cuda.device(dev):
         rc = _build.lib().zp_lz4_parse_walk(
-            payload.data_ptr(), w["rows"].data_ptr(), w["rec_off"].data_ptr(), B, stage,
-            w["rec"].data_ptr(), w["info"].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            payload.data_ptr(), w["rows"].data_ptr(), w["rec_off"].data_ptr(),
+            w["slots"].data_ptr(), plan["ctas"], plan["group"], plan["smem"], steps,
+            w["tpos"].data_ptr(), w["chain"].data_ptr(), w["rec"].data_ptr(),
+            w["info"].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lz4_parse")
-    return w
 
 
 def _parse_layout(payload: torch.Tensor, w: dict, bp: int, S: int, L: int) -> dict:
@@ -638,8 +741,9 @@ def _parse_layout(payload: torch.Tensor, w: dict, bp: int, S: int, L: int) -> di
 def parse_batch(payload: torch.Tensor, offsets, out_sizes) -> dict:
     """:func:`build_batch` of the blocks ``payload[offsets[i]:offsets[i + 1]]``
     as tensors on ``payload``'s device: on the CPU, the host parse; on a GPU,
-    the CUDA parse (``csrc/lz4_parse.cu``: a token walk a block, one small
-    read-back of each row's totals, then the tables laid out by scans).
+    the CUDA parse (``csrc/lz4_parse.cu``: each block's token chain and
+    its values, one small read-back of each row's totals, then the tables
+    laid out by scans).
     Same tables, same errors, in the same order: the first block's parse
     error, then the first block over its declared size.  The dict also
     holds ``n_out`` and, as numpy, ``out_len_host`` (the B blocks' rows).

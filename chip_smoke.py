@@ -24,8 +24,12 @@
    stage; exact), its walk's chain and values steps timed apart, and the
    walkers resident at once printed beside the blocks;
 4. XXH3: holds the many-stream kernel against its plain version and the
-   native host hash on 128 streams of 512 KiB and on 10,011 streams of
-   241..65536 bytes, and the single-stream kernel on the 64 MiB corpus and
+   native host hash on 128 streams of 512 KiB, on 10,011 streams of
+   241..65536 bytes and on 8 streams of 8 MiB (printing the grid it
+   launches, a CTA a row), and on the batches of ``kernels/xxh3_cases.py``
+   (edge lengths, chunk edges, overlapping rows in place, every rejected
+   row beside a valid one, which must give zeros, 1,000 short rows beside
+   one of 1 MiB), and the single-stream kernel on the 64 MiB corpus and
    short edge lengths (exact); then drives the XXH3 entry points over the
    entries of a 10,011-file stored archive (each hash must equal the
    entry's CDR hash) and over the corpus, and both kernels must have been
@@ -38,7 +42,12 @@
 6. zstd compress: a first ``DeviceCompressor.compress_zstd`` run over a
    16 MiB cut of the corpus records the Huffman and FSE batches it builds;
    the Huffman literal-stream kernel and the FSE sequence-stream kernel are
-   held against their plain versions on those batches (exact); then the
+   held against their plain versions on those batches (exact), the FSE
+   encode's state walk and packing timed apart, and on the batches of
+   ``kernels/fse_encode_cases.py`` (every table mode, one and two
+   sequences, offset code 31, 16-bit length extras, a block above the
+   stage cap, 300 tiny blocks beside a long one, tile edges, bits ending on
+   a word; exact); then the
    zstd main path runs again with the launch counters at zero, and its
    frame must equal the host-entropy frame, decode natively, and both
    kernels must have been launched by that run (a 1 MiB cut must also
@@ -431,23 +440,31 @@ XXH3_STREAM_LENGTHS = (241, 1024, 1025, 65536, 200001)
 
 
 def xxh3_sets(corpus: bytes) -> dict:
-    """The Pallas bench shape (128 streams of 512 KiB, ``tpu_bench.py``) and
-    a many-small-files set: 10,000 lengths log-uniform in 241..65536 from
-    ``default_rng(0)`` plus the edge lengths, each cut from the corpus."""
+    """The Pallas bench shape (128 streams of 512 KiB, ``tpu_bench.py``), a
+    many-small-files set (10,000 lengths log-uniform in 241..65536 from
+    ``default_rng(0)`` plus the edge lengths, each cut from the corpus), and
+    8 streams of 8 MiB (the corpus in eighths: long rows in a small batch)."""
     slen = 512 << 10
     rng = np.random.default_rng(0)
     lengths = np.exp(rng.uniform(np.log(241), np.log(65536), 10000))
     lengths = np.concatenate([np.clip(lengths.astype(np.int64), 241, 65536), XXH3_EDGES])
     starts = rng.integers(0, len(corpus) - lengths + 1)
+    eighth = len(corpus) // 8
     return {
         "128 x 512 KiB": [corpus[i * slen:(i + 1) * slen] for i in range(128)],
         f"{len(lengths)} files of 241..65536 B": [
             corpus[a:a + n] for a, n in zip(starts.tolist(), lengths.tolist())],
+        "8 x 8 MiB": [corpus[i * eighth:(i + 1) * eighth] for i in range(8)],
     }
 
 
 def phase_xxh3_batch(sets: dict, device, xxh3_torch, H) -> dict:
+    """The many-stream kernel against its plain version and the native host
+    XXH3 on each set, timed with its plain version and the entry point; its
+    grid (a CTA a row) printed beside the SMs.  The first set is the
+    ``kernels`` row; the others add their ``ms`` and ``bound_ms`` to it."""
     secret = xxh3_torch.secret_tensor(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     err = 0
     result = {}
     for name, streams in sets.items():
@@ -466,6 +483,9 @@ def phase_xxh3_batch(sets: dict, device, xxh3_torch, H) -> dict:
               f"hashes {'equal' if host_equal else 'DIFFERENT'} to the native host XXH3")
         if e or not host_equal:
             raise AssertionError(f"xxh3_batch kernel disagrees on {name}")
+        shape = xxh3_torch.batch_shape(n)
+        print(f"xxh3_batch {name}: grid {shape['grid']} CTAs of {shape['threads']} threads, "
+              f"{shape['per_sm']} an SM x {sms} SMs")
         ms = cuda_ms(lambda: xxh3_torch.accumulate_batch(flat, offsets, secret), 10)
         plain_ms = cuda_ms(lambda: xxh3_torch.hash_batch_plain(flat, offsets), 1, warmup=False)
         native_ms = host_ms(lambda: [H.xxh3_64(s) for s in streams], 3)
@@ -473,17 +493,52 @@ def phase_xxh3_batch(sets: dict, device, xxh3_torch, H) -> dict:
         buf = xxh3_torch.pack(streams)
         pack_ms = host_ms(lambda: xxh3_torch.pack(streams), 3)
         h2d_ms = host_ms(lambda: (buf.to(device), torch.cuda.synchronize()), 3)
-        print(f"xxh3_batch {name}: kernel {ms:.3f} ms ({mb / ms * 1e3:.1f} MB/s), "
+        b = bound(tensor_bytes(flat, offsets, secret, acc, hashes), flat.numel(),
+                  chain_steps=-(-max(map(len, streams)) // 1024))
+        print(f"xxh3_batch {name}: kernel {ms:.3f} ms ({mb / ms * 1e3:.1f} MB/s; bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}), "
               f"plain {plain_ms:.3f} ms ({mb / plain_ms * 1e3:.1f} MB/s), "
               f"host native loop {native_ms:.3f} ms ({mb / native_ms * 1e3:.1f} MB/s), "
               f"xxh3_64_batch end to end {e2e_ms:.3f} ms ({mb / e2e_ms * 1e3:.1f} MB/s; "
               f"of which pack {pack_ms:.3f} ms, h2d {h2d_ms:.3f} ms)")
         if not result:  # the Pallas bench shape is the kernel's row
-            result = {"ms": ms, "plain_ms": plain_ms,
-                      **bound(tensor_bytes(flat, offsets, secret, acc, hashes), flat.numel(),
-                              chain_steps=-(-max(map(len, streams)) // 1024))}
+            result = {"ms": ms, "plain_ms": plain_ms, **b, "grid_ctas": shape["grid"],
+                      "ctas_per_sm": shape["per_sm"]}
+        else:
+            key = "files" if "files" in name else "rows_" + name.replace(" ", "")
+            result.update({f"{key}_ms": ms, f"{key}_bound_ms": b["bound_ms"]})
     result["max_abs_err"] = err
     return result
+
+
+def phase_xxh3_cases(device, xxh3_torch, H) -> int:
+    """Every batch of ``kernels/xxh3_cases.py``: the kernel's accumulators
+    and hashes of the valid rows against the plain version's and the native
+    host XXH3, zeros for the rejected rows (exact).  Returns the largest
+    error."""
+    from zpack_tpu_torch.kernels import xxh3_cases
+
+    secret = xxh3_torch.secret_tensor(device)
+    err = 0
+    for name, case in xxh3_cases.cases().items():
+        flat, rows = torch.from_numpy(case.flat).to(device), torch.from_numpy(case.rows).to(device)
+        valid = torch.from_numpy(case.valid).to(device)
+        acc, hashes = xxh3_torch.accumulate_batch(flat, rows, secret)
+        want_acc, want_hashes = xxh3_torch.hash_batch_plain(flat, rows[valid])
+        torch.cuda.synchronize()
+        e = max(u64_err(acc[valid], want_acc), u64_err(hashes[valid], want_hashes),
+                u64_err(acc[~valid], torch.zeros_like(acc[~valid])),
+                u64_err(hashes[~valid], torch.zeros_like(hashes[~valid])))
+        err = max(err, e)
+        host_equal = hashes[valid].cpu().numpy().view(np.uint64).tolist() == [
+            H.xxh3_64(s) for s in xxh3_cases.streams(case)]
+        print(f"xxh3 case {name!r}: {len(case.rows)} rows ({int((~case.valid).sum())} rejected), "
+              f"longest {int(case.rows[:, 1].max())} B: "
+              f"{'equal' if e == 0 else 'DIFFERENT'} (max_abs_err {e}), hashes "
+              f"{'equal' if host_equal else 'DIFFERENT'} to the native host XXH3")
+        if e or not host_equal:
+            raise AssertionError(f"xxh3_batch kernel != plain on case {name!r}")
+    return err
 
 
 def phase_xxh3_stream(corpus: bytes, device, xxh3_torch, H) -> dict:
@@ -675,10 +730,61 @@ def phase_fse(batches: list, device, fse_torch) -> dict:
     nseq = sum(len(b["fields"]) for b in batches)
     longest = max(int((b["seq_off"][1:] - b["seq_off"][:-1]).max()) for b in batches)
     print(f"fse_encode input: {nseq} sequences, longest block {longest}")
-    return _check_batches("fse_encode", batches, device, fse_torch.encode_seq_streams,
-                          fse_torch.encode_seq_streams_plain, fse_torch.BATCH_ARGS,
-                          lambda total, b: bool((total + 1 <= b["ub_bits"]).all()),
-                          chain_steps=longest)
+    res = _check_batches("fse_encode", batches, device, fse_torch.encode_seq_streams,
+                         fse_torch.encode_seq_streams_plain, fse_torch.BATCH_ARGS,
+                         lambda total, b: bool((total + 1 <= b["ub_bits"]).all()),
+                         chain_steps=longest)
+    # the launch alone, and its state walk and its packing each alone (their
+    # outputs mean nothing), over the batches with their outputs made once
+    runs = []
+    for b in batches:
+        args = [torch.from_numpy(b[k]).to(device) for k in fse_torch.BATCH_ARGS]
+        words = torch.zeros(b["n_words"], dtype=torch.int32, device=device)
+        total = torch.empty(len(b["seq_off"]) - 1, dtype=torch.int32, device=device)
+        runs.append((args, words, total))
+
+    def launch(steps):
+        for args, words, total in runs:
+            fse_torch._encode_launch(args, words, total, steps)
+
+    launch_ms, chain_ms, fields_ms = (cuda_ms(lambda: launch(s), 10) for s in (3, 1, 2))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = sum(len(b["seq_off"]) - 1 for b in batches)
+    stage = max(fse_torch.encode_stage(len(b["fields"])) for b in batches)
+    resident = fse_torch.encode_ctas_per_sm(stage) * sms
+    print(f"fse_encode steps: the launch {launch_ms:.3f} ms, the state walk alone {chain_ms:.3f} "
+          f"ms ({chain_ms * 1e6 / max(longest, 1):.1f} ns a step of the longest block), the "
+          f"packing alone {fields_ms:.3f} ms; {blocks} blocks, a stage of {stage} sequences: "
+          f"{resident} CTAs resident at once")
+    res.update({"launch_ms": launch_ms, "chain_ms": chain_ms, "fields_ms": fields_ms,
+                "chain_ns_per_step": chain_ms * 1e6 / max(longest, 1),
+                "longest_block_sequences": longest, "blocks": blocks,
+                "ctas_resident": resident})
+    return res
+
+
+def phase_fse_encode_cases(device, fse_torch) -> int:
+    """Every batch of ``kernels/fse_encode_cases.py``: the FSE encode
+    kernel's words and ``total_bits`` against the plain version's (exact).
+    Returns the largest error."""
+    from zpack_tpu_torch.kernels import fse_encode_cases
+
+    err = 0
+    for name, case in fse_encode_cases.cases().items():
+        batch = fse_torch.build_batch(case.blocks, case.tables)
+        args = [torch.from_numpy(batch[k]).to(device) for k in fse_torch.BATCH_ARGS]
+        got = fse_torch.encode_seq_streams(*args, n_words=batch["n_words"])
+        want = fse_torch.encode_seq_streams_plain(*args, n_words=batch["n_words"])
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        ns = np.diff(batch["seq_off"])
+        print(f"fse_encode case {name!r}: {len(ns)} blocks, {int(ns.sum())} sequences (longest "
+              f"{int(ns.max())}, {'above' if ns.max() > fse_torch.ENCODE_STAGE_CAP else 'within'} "
+              f"the stage cap): {'equal' if e == 0 else 'DIFFERENT'} (max_abs_err {e})")
+        if e:
+            raise AssertionError(f"fse_encode kernel != plain on case {name!r}")
+    return err
 
 
 def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceCompressor,
@@ -1197,6 +1303,7 @@ def main() -> int:
     lp = phase_lz4_parse(corpus, device, lz4_torch, extract, DeviceCompressor)
     sets = xxh3_sets(corpus)
     xb = phase_xxh3_batch(sets, device, xxh3_torch, H)
+    xc = phase_xxh3_cases(device, xxh3_torch, H)
     xs = phase_xxh3_stream(corpus, device, xxh3_torch, H)
     x_launches = phase_xxh3_main(list(sets.values())[1], corpus, device, xxh3_torch, H)
     launches = phase_main_path(corpus, device, lz4_torch)
@@ -1204,6 +1311,7 @@ def main() -> int:
     rec = record_zstd_batches(cut, device, DeviceCompressor, huffman_torch, fse_torch)
     hf = phase_huffman(rec["huffman"], device, huffman_torch)
     fs = phase_fse(rec["fse"], device, fse_torch)
+    fec = phase_fse_encode_cases(device, fse_torch)
     z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor,
                             huffman_torch, fse_torch)
     modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch,
@@ -1270,9 +1378,9 @@ def main() -> int:
          "zstd_rows_bound_ms": zk["lz4_replay"]["bound_ms"]},
         {"name": "xxh3_batch", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_batch.cu",
          "replaces": "zpack_tpu/kernels/xxh3_pallas.py:77",
-         "launches": x_launches["xxh3_batch"], **xb},
+         "launches": x_launches["xxh3_batch"], **xb, "max_abs_err": max(xb["max_abs_err"], xc)},
         {"name": "xxh3_stream", "route": "cuda", "source": "zpack_tpu_torch/csrc/xxh3_stream.cu",
-         "replaces": "zpack_tpu/kernels/xxh3_jax.py:72",
+         "replaces": "zpack_tpu/kernels/xxh3_jax.py:73",
          "launches": x_launches["xxh3_stream"], **xs},
         {"name": "huffman_encode", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/huffman_encode.cu",
@@ -1280,7 +1388,7 @@ def main() -> int:
          "launches": z_launches["huffman_encode"], **hf},
         {"name": "fse_encode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_encode.cu",
          "replaces": "zpack_tpu/kernels/fse_jax.py:83",
-         "launches": z_launches["fse_encode"], **fs},
+         "launches": z_launches["fse_encode"], **fs, "max_abs_err": max(fs["max_abs_err"], fec)},
         {"name": "huffman_decode", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/huffman_decode.cu",
          "replaces": "zpack_tpu/kernels/huffman_jax.py:385",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in one run.
 
-    python3 scripts/torch_ab.py [--extract | --lz4-extract | --lz4-parse] PARENT_DIR CHANGE_DIR
+    python3 scripts/torch_ab.py [--extract | --lz4-extract | --lz4-parse | --xxh3-batch |
+                                 --fse-encode] PARENT_DIR CHANGE_DIR
 
 Runs parent, change, change, parent, each in a process of its own with its
 own build of the kernels: two checkouts are compared only inside one run on
@@ -23,7 +24,15 @@ each side runs the LZ4 archive round trip only (``phase_main_path``, two
 runs of create and extract), for a change to the LZ4 extract path.  With
 ``--lz4-parse`` each side runs its LZ4 block parse phase (the kernel
 against ``build_batch``, the wrapper, the walk and the layout timed), then
-the round trip, for a change to the parse.
+the round trip, for a change to the parse.  With ``--xxh3-batch`` each
+side runs its many-stream XXH3 phase on 128 x 512 KiB, the 10,011 files
+and 8 x 8 MiB (kernel ms, plain ms, the entry point end to end), then the
+batches of ``kernels/xxh3_cases.py`` where its checkout has them.  With
+``--fse-encode`` each side records the zstd compress path's FSE batches on
+the 16 MiB cut, runs its FSE encode phase on them (kernel ms, and where its
+checkout has them the state walk and the packing apart), the batches of
+``kernels/fse_encode_cases.py`` where it has them, then the zstd compress
+phase (end to end, device and host entropy).
 
 Prints the card's name and power limit first, then each side's lines as
 the phases print them.  Needs a CUDA GPU; exits non-zero if a side fails.
@@ -60,6 +69,29 @@ if MODE == "--lz4-parse":
     cs.phase_lz4_parse(corpus, dev, lz4_torch, extract, DeviceCompressor)
     cs.phase_main_path(corpus, dev, lz4_torch)
     sys.exit(0)
+if MODE == "--xxh3-batch":
+    from zpack_tpu_torch.codecs import xxh3 as H
+    from zpack_tpu_torch.kernels import _build, xxh3_torch
+    _build.lib()
+    sets = cs.xxh3_sets(corpus)
+    eighth = len(corpus) // 8
+    sets.setdefault("8 x 8 MiB", [corpus[i * eighth:(i + 1) * eighth] for i in range(8)])
+    cs.phase_xxh3_batch(sets, dev, xxh3_torch, H)
+    if hasattr(cs, "phase_xxh3_cases"):
+        cs.phase_xxh3_cases(dev, xxh3_torch, H)
+    sys.exit(0)
+if MODE == "--fse-encode":
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.kernels import _build
+    _build.lib()
+    native.get_lib()
+    cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
+    rec = cs.record_zstd_batches(cut, dev, DeviceCompressor, huffman_torch, fse_torch)
+    cs.phase_fse(rec["fse"], dev, fse_torch)
+    if hasattr(cs, "phase_fse_encode_cases"):
+        cs.phase_fse_encode_cases(dev, fse_torch)
+    cs.phase_zstd(cut, corpus, rec["frame"], dev, DeviceCompressor, huffman_torch, fse_torch)
+    sys.exit(0)
 if MODE != "--extract":
     cs.phase_tokenize(corpus, dev, lz4_torch)
     cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
@@ -77,12 +109,14 @@ cs.phase_zstd_extract_main(zbuf, zcomp, corpus, dev, modules)
 KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "main path rep",
         "main path phases", "main path launches", "lz4_parse",
         "zstd extract main path rep", "zstd extract main path phases",
-        "fse_decode (zstd extract)", "huffman_decode (zstd extract)")
+        "fse_decode (zstd extract)", "huffman_decode (zstd extract)", "xxh3_batch", "xxh3 case",
+        "fse_encode", "zstd main path", "zstd host-entropy", "zstd first run")
 
 
 def main() -> int:
     args = sys.argv[1:]
-    mode = args[0] if args[:1] in (["--extract"], ["--lz4-extract"], ["--lz4-parse"]) else None
+    modes = ("--extract", "--lz4-extract", "--lz4-parse", "--xxh3-batch", "--fse-encode")
+    mode = args[0] if args[:1] and args[0] in modes else None
     if mode:
         args = args[1:]
     if len(args) != 2:
@@ -92,12 +126,13 @@ def main() -> int:
     side = f"MODE = {mode!r}\n" + SIDE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     for name, tree in (("parent", parent), ("change", change), ("change", change),
                        ("parent", parent)):
         res = subprocess.run([sys.executable, "-c", side], cwd=tree, capture_output=True,
                              text=True, timeout=1200)
-        print(f"== {name} ({tree})")
+        print(f"== {name} ({tree}) on {card}")
         if res.returncode != 0:
             print(res.stdout[-2000:], res.stderr[-2000:], file=sys.stderr)
             return 1

@@ -23,9 +23,9 @@ from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
 from zpack_tpu_torch.errors import DecompressError
-from zpack_tpu_torch.kernels import (fse_cases, fse_torch, huffman_cases, huffman_torch,
-                                     lz4_parse_cases, lz4_torch, replay_cases, tokenize_cases,
-                                     xxh3_torch)
+from zpack_tpu_torch.kernels import (fse_cases, fse_encode_cases, fse_torch, huffman_cases,
+                                     huffman_torch, lz4_parse_cases, lz4_torch, replay_cases,
+                                     tokenize_cases, xxh3_cases, xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -283,6 +283,31 @@ def test_xxh3_entry_points_launch_kernels(cuda):
     assert xxh3_torch.LAUNCHES == {"xxh3_batch": 1, "xxh3_stream": 1}
 
 
+_XXH3_CASES = xxh3_cases.cases()
+
+
+@pytest.mark.parametrize("name", list(_XXH3_CASES))
+def test_xxh3_batch_kernel_matches_plain_on_cases(cuda, name):
+    """Every batch of ``xxh3_cases.py``: the valid rows equal the plain
+    version and the host XXH3; the rejected ones read nothing and give
+    zeros."""
+    case = _XXH3_CASES[name]
+    flat, rows = torch.from_numpy(case.flat).to(cuda), torch.from_numpy(case.rows).to(cuda)
+    acc, hashes = xxh3_torch.accumulate_batch(flat, rows, xxh3_torch.secret_tensor(cuda))
+    valid = torch.from_numpy(case.valid).to(cuda)
+    want_acc, want_hashes = xxh3_torch.hash_batch_plain(flat, rows[valid])
+    torch.cuda.synchronize()
+    assert torch.equal(acc[valid], want_acc) and torch.equal(hashes[valid], want_hashes)
+    assert not acc[~valid].any() and not hashes[~valid].any()
+    assert hashes[valid].cpu().numpy().view(np.uint64).tolist() == [
+        H.xxh3_64(s) for s in xxh3_cases.streams(case)]
+
+
+def test_xxh3_batch_launches_a_cta_a_row(cuda):
+    shape = xxh3_torch.batch_shape(128)
+    assert shape["grid"] == 128 and shape["threads"] == 256 and shape["per_sm"] >= 1
+
+
 def _huff_streams():
     """Ragged literal streams over different alphabets, one of 65,536 and
     one of 100,000 symbols, with their host Huffman tables."""
@@ -342,6 +367,32 @@ def test_fse_encode_kernel_matches_plain(cuda):
     enc = fse_torch.TorchSequenceEncoder(cuda)
     assert enc.encode_batch(blocks, tables) == [
         zseq.encode_sequences(*b, *t) for b, t in zip(blocks, tables)]
+
+
+_FSE_ENCODE_CASES = fse_encode_cases.cases()
+
+
+@pytest.mark.parametrize("cap", [None, 64])
+@pytest.mark.parametrize("name", list(_FSE_ENCODE_CASES))
+def test_fse_encode_kernel_matches_plain_on_cases(cuda, monkeypatch, name, cap):
+    """Every batch of ``fse_encode_cases.py``, with the stage as the wrapper
+    sizes it and with the cap at 64 sequences (every longer block's codes
+    and states in the global scratch); the bytes equal the host oracle's."""
+    if cap:
+        monkeypatch.setattr(fse_torch, "ENCODE_STAGE_CAP", cap)
+    case = _FSE_ENCODE_CASES[name]
+    batch = fse_torch.build_batch(case.blocks, case.tables)
+    args = [torch.from_numpy(batch[k]).to(cuda) for k in fse_torch.BATCH_ARGS]
+    got = fse_torch.encode_seq_streams(*args, n_words=batch["n_words"])
+    want = fse_torch.encode_seq_streams_plain(*args, n_words=batch["n_words"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert fse_torch.TorchSequenceEncoder(cuda).encode_batch(case.blocks, case.tables) == [
+        zseq.encode_sequences(*b, *t) for b, t in zip(case.blocks, case.tables)]
+
+
+def test_fse_encode_holds_two_ctas_an_sm_at_the_cap(cuda):
+    assert fse_torch.encode_ctas_per_sm(fse_torch.ENCODE_STAGE_CAP) >= 2
 
 
 def test_compress_zstd_on_cuda_launches_both_kernels(cuda):

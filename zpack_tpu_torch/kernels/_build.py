@@ -130,12 +130,16 @@ def lib() -> ctypes.CDLL:
             i64 = ctypes.c_longlong
             cdll.zp_xxh3_batch.restype = i
             cdll.zp_xxh3_batch.argtypes = [p, i64, p, i, p, p, p, p]
+            cdll.zp_xxh3_batch_shape.restype = i
+            cdll.zp_xxh3_batch_shape.argtypes = [i, p]
             cdll.zp_xxh3_stream.restype = i
             cdll.zp_xxh3_stream.argtypes = [p, i64, p, p, p, p, p]
             cdll.zp_huffman_encode.restype = i
             cdll.zp_huffman_encode.argtypes = [p, p, p, p, i, p, p, p]
             cdll.zp_fse_encode.restype = i
-            cdll.zp_fse_encode.argtypes = [p, p, p, p, p, i, p, p, p]
+            cdll.zp_fse_encode.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p]
+            cdll.zp_fse_encode_occupancy.restype = i
+            cdll.zp_fse_encode_occupancy.argtypes = [i, p]
             cdll.zp_huffman_decode.restype = i
             cdll.zp_huffman_decode.argtypes = [p, i64, p, i, p, i, p, i64, p, i, p]
             cdll.zp_huffman_decode_occupancy.restype = i

@@ -39,6 +39,8 @@ at the top.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -193,6 +195,13 @@ def encode_seq_streams_plain(fields, seq_off, tables, al, word_off, *, n_words: 
     return scatter_bits(n_words, pos, vals), total.to(torch.int32)
 
 
+#: the most sequences of one block the CUDA encoder stages in shared memory
+#: (10 bytes each: the code word and three 16-bit states, so 80 KiB); a
+#: longer block works in a global scratch.  Read at each launch, so a test
+#: can lower it.
+ENCODE_STAGE_CAP = 8192
+
+
 def encode_seq_streams(fields, seq_off, tables, al, word_off, *, n_words: int):
     """:func:`encode_seq_streams_plain` on the CPU; on a GPU, the CUDA
     encoder (``csrc/fse_encode.cu``).  Same inputs, same outputs."""
@@ -212,15 +221,46 @@ def encode_seq_streams(fields, seq_off, tables, al, word_off, *, n_words: int):
     total = torch.empty(B, dtype=torch.int32, device=fields.device)
     if B == 0:
         return words, total
+    _encode_launch(args, words, total, 3)
+    LAUNCHES["fse_encode"] += 1
+    return words, total
+
+
+def encode_stage(total: int) -> int:
+    """The sequences a block may stage in shared memory in a launch of
+    ``total`` sequences: all of them, up to :data:`ENCODE_STAGE_CAP`."""
+    return min(total, ENCODE_STAGE_CAP)
+
+
+def encode_ctas_per_sm(stage: int) -> int:
+    """How many CTAs of the CUDA encoder (a CTA a block) one SM of the
+    current GPU holds at once with a stage of ``stage`` sequences."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.lib().zp_fse_encode_occupancy(stage, ctypes.byref(blocks)),
+                 "fse_encode occupancy")
+    return blocks.value
+
+
+def _encode_launch(args, words, total, steps: int) -> None:
+    """One launch of ``csrc/fse_encode.cu`` on checked tensors.  ``steps`` 3
+    encodes; 1 runs the state walk alone and 2 the packing alone, for timing
+    only (their outputs mean nothing).  The stage holds the batch's
+    sequences up to :data:`ENCODE_STAGE_CAP` (:func:`encode_stage`: the host
+    knows it without a read-back); a block longer than the stage works in a
+    scratch of 10 bytes a sequence."""
+    fields, seq_off, tables, al, word_off = args
+    n = fields.shape[0]
+    stage = encode_stage(n)
+    scratch = torch.empty(-(-10 * n // 4) if n > stage else 1, dtype=torch.int32,
+                          device=fields.device)
     lib = _build.lib()
     with torch.cuda.device(fields.device):
         rc = lib.zp_fse_encode(
             fields.data_ptr(), seq_off.data_ptr(), tables.data_ptr(), al.data_ptr(),
-            word_off.data_ptr(), B, words.data_ptr(), total.data_ptr(),
+            word_off.data_ptr(), seq_off.shape[0] - 1, stage, steps, scratch.data_ptr(),
+            words.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(fields.device).cuda_stream)
     _build.check(rc, "fse_encode")
-    LAUNCHES["fse_encode"] += 1
-    return words, total
 
 
 def build_batch(blocks: list[tuple], tables: list[tuple]) -> dict:

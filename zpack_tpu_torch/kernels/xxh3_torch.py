@@ -23,6 +23,7 @@ The constants and the host reference come from ``codecs/xxh3.py``.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -246,9 +247,19 @@ def _check_secret(secret: torch.Tensor, device: torch.device) -> None:
         raise ValueError("the plain versions hold kSecret only")
 
 
+def batch_shape(n: int) -> dict:
+    """The CUDA many-stream kernel's launch for ``n`` rows on the current
+    GPU: ``grid`` (a CTA a row), ``threads`` a CTA and ``per_sm``, the CTAs
+    one SM holds at once."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.lib().zp_xxh3_batch_shape(n, out), "xxh3_batch shape")
+    return dict(zip(("grid", "threads", "per_sm"), out))
+
+
 def accumulate_batch(flat: torch.Tensor, offsets: torch.Tensor, secret: torch.Tensor):
     """:func:`hash_batch_plain` on the CPU; on a GPU, the CUDA many-stream
-    kernel (``csrc/xxh3_batch.cu``).  Returns ``(acc (n, 8), hash (n,))``,
+    kernel (``csrc/xxh3_batch.cu``): a CTA a row, seven warps on the block
+    sums and eight lanes on the chain.  Returns ``(acc (n, 8), hash (n,))``,
     int64 tensors holding u64 bits.
 
     ``secret`` is :func:`secret_tensor` of the device.  The kernel takes any

@@ -42,7 +42,14 @@
 6. zstd compress: a first ``DeviceCompressor.compress_zstd`` run over a
    16 MiB cut of the corpus records the Huffman and FSE batches it builds;
    the Huffman literal-stream kernel and the FSE sequence-stream kernel are
-   held against their plain versions on those batches (exact), the FSE
+   held against their plain versions on those batches (exact); the Huffman
+   encode timed through its wrapper, its launch alone and an empty kernel on
+   its grid (the launch floor), the encoder's host steps split and the
+   streams' lengths printed, and the kernel held
+   on the batches of ``kernels/huffman_encode_cases.py`` (one-symbol
+   streams, codes of 11 bits and of 1 bit only, bits ending on a word and
+   past it, lengths at group and tile edges, a stream above 64 KiB, uneven
+   4-stream blocks, tiny streams beside a long one; exact); the FSE
    encode's state walk and packing timed apart, and on the batches of
    ``kernels/fse_encode_cases.py`` (every table mode, one and two
    sequences, offset code 31, 16-bit length extras, a block above the
@@ -199,6 +206,24 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of the device work of ``fn`` (one warm-up): a sleep
+    kernel queued first holds the stream while the host queues every call,
+    so the events time the launches back to back and not the host's rate
+    of launching them (which bounds :func:`cuda_ms` for a kernel of a few
+    microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 200_000)  # about 0.1 ms of the SM clock a call
     start.record()
     for _ in range(reps):
         fn()
@@ -657,15 +682,26 @@ def zstd_cut(corpus: bytes, size: int) -> bytes:
 
 
 def record_zstd_batches(cut: bytes, device, DeviceCompressor, huffman_torch, fse_torch) -> dict:
-    """One ``compress_zstd`` run whose encoders keep the batches they are
-    given: the inputs of the two kernel checks, at the main path's shapes."""
+    """One ``compress_zstd`` run whose encoders keep what they are given: the
+    inputs of the two kernel checks, at the main path's shapes.  Huffman:
+    ``huffman_calls``, each call of the encoder by ``encode_literal_sections``
+    (``(method, items, tables)``), and ``huffman``, the batch of each."""
+    calls = []
 
     class Huffman(huffman_torch.TorchHuffmanEncoder):
         batches: list = []
 
         def encode_batch(self, streams, tables):
-            self.batches.append(huffman_torch.build_batch(streams, tables))
+            calls.append(("encode_batch", streams, tables))
             return super().encode_batch(streams, tables)
+
+        def encode_4stream_batch(self, blocks, tables):
+            calls.append(("encode_4stream_batch", blocks, tables))
+            return super().encode_4stream_batch(blocks, tables)
+
+        def _payloads(self, batch):
+            self.batches.append(batch)
+            return super()._payloads(batch)
 
     class Sequences(fse_torch.TorchSequenceEncoder):
         batches: list = []
@@ -682,11 +718,58 @@ def record_zstd_batches(cut: bytes, device, DeviceCompressor, huffman_torch, fse
           f"{len(Huffman.batches)} Huffman and {len(Sequences.batches)} FSE batches")
     if not Huffman.batches or not Sequences.batches:
         raise AssertionError("the zstd main path built no Huffman or no FSE batch")
-    return {"huffman": Huffman.batches, "fse": Sequences.batches, "frame": frame}
+    return {"huffman": Huffman.batches, "huffman_calls": calls, "fse": Sequences.batches,
+            "frame": frame}
+
+
+def huffman_steps(calls: list, device, huffman_torch, reps: int = 7) -> dict:
+    """The Huffman encoder's steps on the recorded calls, medians of ``reps``
+    ms on the host clock: ``encode``, the encoder's calls whole; then each
+    step of them apart: ``build_batch`` (``build_batch`` or
+    ``build_4stream_batch``), ``pack_tables`` (a part of it, on the calls'
+    distinct tables), ``h2d``, the upload of the batch's arrays, ``launch``
+    (``encode_streams`` through its wrapper, ended by a synchronise) and
+    ``d2h``, the download of the plane and ``total_bits``; ``rest``, the cut
+    into payloads and the checks, is ``encode`` less the others."""
+    build = {"encode_batch": huffman_torch.build_batch,
+             "encode_4stream_batch": lambda *a: huffman_torch.build_4stream_batch(*a)[0]}
+    enc = huffman_torch.TorchHuffmanEncoder(device)
+    out = {k: [] for k in ("encode", "build_batch", "pack_tables", "h2d", "launch", "d2h")}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for method, items, tables in calls:
+            getattr(enc, method)(items, tables)
+        torch.cuda.synchronize()
+        out["encode"].append(time.perf_counter() - t0)
+        sums = dict.fromkeys(out, 0.0)
+        for method, items, tables in calls:
+            t = [time.perf_counter()]
+            huffman_torch.pack_tables(huffman_torch._distinct(tables)[1])
+            t.append(time.perf_counter())
+            batch = build[method](items, tables)
+            t.append(time.perf_counter())
+            args = [torch.from_numpy(batch[k]).to(device) for k in huffman_torch.BATCH_ARGS]
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            words, total = huffman_torch.encode_streams(*args, n_words=batch["n_words"])
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            words.cpu().numpy(), total.cpu().numpy()
+            t.append(time.perf_counter())
+            for k, a, b in zip(("pack_tables", "build_batch", "h2d", "launch", "d2h"), t, t[1:]):
+                sums[k] += b - a
+        for k in sums:
+            if k != "encode":
+                out[k].append(sums[k])
+    med = {k: float(np.median(v)) * 1e3 for k, v in out.items()}
+    med["rest"] = med["encode"] - sum(med[k] for k in ("build_batch", "h2d", "launch", "d2h"))
+    return med
 
 
 def _check_batches(name: str, batches: list, device, kernel, plain, args: tuple,
-                   total_ok, chain_steps: int = 0, ops_per_item: float = 0.0) -> dict:
+                   total_ok, chain_steps: int = 0, ops_per_item: float = 0.0,
+                   streams=lambda b: len(b["word_off"]) - 1) -> dict:
     """Hold ``kernel`` against ``plain`` on every batch (words and
     total_bits exact, and ``total_ok(total_bits, batch)`` true); time one
     pass over all batches."""
@@ -703,7 +786,7 @@ def _check_batches(name: str, batches: list, device, kernel, plain, args: tuple,
                   int((gt.long() - wt.long()).abs().max()))
         if not total_ok(gt.cpu().numpy().astype(np.int64), b):
             raise AssertionError(f"{name}: total_bits disagree with the host's bound or count")
-    rows = sum(len(b[args[-1]]) - 1 for b in batches)
+    rows = sum(streams(b) for b in batches)
     print(f"{name} ({len(batches)} batches, {rows} streams, "
           f"{sum(b['n_words'] for b in batches)} words): "
           f"{'equal' if err == 0 else 'DIFFERENT'} to plain (max_abs_err {err})")
@@ -711,19 +794,83 @@ def _check_batches(name: str, batches: list, device, kernel, plain, args: tuple,
         raise AssertionError(f"{name} kernel != plain on the zstd main path's batches")
     ms = cuda_ms(lambda: run(kernel), 10)
     plain_ms = cuda_ms(lambda: run(plain), 2, warmup=False)
-    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (all batches of one run)")
+    print(f"{name}: through the wrapper {ms:.4f} ms, plain {plain_ms:.3f} ms (all batches of "
+          f"one run)")
     items = sum(len(b[args[0]]) for b in batches)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **bound(tensor_bytes(tensors, got), ops_per_item * items, chain_steps)}
 
 
-def phase_huffman(batches: list, device, huffman_torch) -> dict:
-    nsym = sum(len(b["syms"]) for b in batches)
-    print(f"huffman_encode input: {nsym} literal symbols")
-    return _check_batches("huffman_encode", batches, device, huffman_torch.encode_streams,
-                          huffman_torch.encode_streams_plain, huffman_torch.BATCH_ARGS,
-                          lambda total, b: np.array_equal(total, b["total_bits"]),
-                          ops_per_item=8.0)  # a table load, a shift, an or, a scan share
+def phase_huffman(rec: dict, device, huffman_torch) -> dict:
+    """The Huffman encode kernel on the main path's batches: against the
+    plain version (exact) and the host's bit counts; timed through its
+    wrapper (``ms``, one pass over the batches, host included), and on the
+    device alone (:func:`queued_ms`): its launch with the outputs made once
+    (``launch_ms``) and an empty kernel launched on the same grid
+    (``floor_ms``); then the encoder's host steps on the recorded calls."""
+    batches = rec["huffman"]
+    ns = np.concatenate([b["rows"][:, 1] for b in batches])
+    lengths = {"streams": int(ns.size), "symbols": int(ns.sum()), "longest": int(ns.max()),
+               "median": float(np.median(ns)), "mean": float(ns.mean()),
+               "over_4096": int((ns > 4096).sum()), "shortest": int(ns.min())}
+    print("huffman_encode streams: " + json.dumps(lengths))
+    res = _check_batches("huffman_encode", batches, device, huffman_torch.encode_streams,
+                         huffman_torch.encode_streams_plain, huffman_torch.BATCH_ARGS,
+                         lambda total, b: np.array_equal(total, b["rows"][:, 3]),
+                         ops_per_item=8.0,  # a table load, a shift, an or, a scan share
+                         streams=lambda b: len(b["rows"]))
+    runs = []
+    for b in batches:
+        args = [torch.from_numpy(b[k]).to(device) for k in huffman_torch.BATCH_ARGS]
+        runs.append((args, torch.empty(b["n_words"], dtype=torch.int32, device=device),
+                     torch.empty(len(b["rows"]), dtype=torch.int32, device=device)))
+    lib = huffman_torch._build.lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch():
+        for args, words, total in runs:
+            huffman_torch._encode_launch(args, words, total)
+
+    def floor():
+        for args, _, _ in runs:
+            huffman_torch._build.check(lib.zp_launch_floor(args[1].shape[0], stream), "floor")
+
+    launch_ms, floor_ms = queued_ms(launch, 50), queued_ms(floor, 50)
+    ctas = sum(len(b["rows"]) for b in batches)
+    tables = sum(len(b["tables"]) for b in batches)
+    steps = huffman_steps(rec["huffman_calls"], device, huffman_torch)
+    print(f"huffman_encode on the device alone: the launch {launch_ms:.4f} ms, an empty kernel on "
+          f"the same grid ({ctas} CTAs of 256) {floor_ms:.4f} ms; {tables} tables staged")
+    print("huffman_encode host steps (ms, median of 7): " + json.dumps(steps))
+    res.update({"launch_ms": launch_ms, "floor_ms": floor_ms, "ctas": ctas, "tables": tables,
+                "longest_stream": lengths["longest"], "median_stream": lengths["median"],
+                "host_steps_ms": steps})
+    return res
+
+
+def phase_huffman_encode_cases(device, huffman_torch) -> int:
+    """Every batch of ``kernels/huffman_encode_cases.py``: the Huffman encode
+    kernel's words and ``total_bits`` against the plain version's (exact),
+    and ``total_bits`` against the host's counts.  Returns the largest
+    error."""
+    from zpack_tpu_torch.kernels import huffman_encode_cases
+
+    err = 0
+    for name, case in huffman_encode_cases.cases().items():
+        b = huffman_encode_cases.batch(case)
+        args = [torch.from_numpy(b[k]).to(device) for k in huffman_torch.BATCH_ARGS]
+        got = huffman_torch.encode_streams(*args, n_words=b["n_words"])
+        want = huffman_torch.encode_streams_plain(*args, n_words=b["n_words"])
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        ns = b["rows"][:, 1]
+        print(f"huffman_encode case {name!r}: {len(ns)} streams, {int(ns.sum())} symbols "
+              f"(longest {int(ns.max())}): "
+              f"{'equal' if e == 0 else 'DIFFERENT'} (max_abs_err {e})")
+        if e or not np.array_equal(got[1].cpu().numpy(), b["rows"][:, 3]):
+            raise AssertionError(f"huffman_encode kernel != plain on case {name!r}")
+    return err
 
 
 def phase_fse(batches: list, device, fse_torch) -> dict:
@@ -1309,7 +1456,8 @@ def main() -> int:
     launches = phase_main_path(corpus, device, lz4_torch)
     cut = zstd_cut(corpus, ZSTD_BYTES)
     rec = record_zstd_batches(cut, device, DeviceCompressor, huffman_torch, fse_torch)
-    hf = phase_huffman(rec["huffman"], device, huffman_torch)
+    hf = phase_huffman(rec, device, huffman_torch)
+    hec = phase_huffman_encode_cases(device, huffman_torch)
     fs = phase_fse(rec["fse"], device, fse_torch)
     fec = phase_fse_encode_cases(device, fse_torch)
     z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor,
@@ -1385,7 +1533,8 @@ def main() -> int:
         {"name": "huffman_encode", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/huffman_encode.cu",
          "replaces": "zpack_tpu/kernels/huffman_jax.py:83",
-         "launches": z_launches["huffman_encode"], **hf},
+         "launches": z_launches["huffman_encode"], **hf,
+         "max_abs_err": max(hf["max_abs_err"], hec)},
         {"name": "fse_encode", "route": "cuda", "source": "zpack_tpu_torch/csrc/fse_encode.cu",
          "replaces": "zpack_tpu/kernels/fse_jax.py:83",
          "launches": z_launches["fse_encode"], **fs, "max_abs_err": max(fs["max_abs_err"], fec)},

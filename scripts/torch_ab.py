@@ -2,7 +2,7 @@
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in one run.
 
     python3 scripts/torch_ab.py [--extract | --lz4-extract | --lz4-parse | --xxh3-batch |
-                                 --fse-encode] PARENT_DIR CHANGE_DIR
+                                 --fse-encode | --huffman-encode] PARENT_DIR CHANGE_DIR
 
 Runs parent, change, change, parent, each in a process of its own with its
 own build of the kernels: two checkouts are compared only inside one run on
@@ -32,7 +32,14 @@ batches of ``kernels/xxh3_cases.py`` where its checkout has them.  With
 the 16 MiB cut, runs its FSE encode phase on them (kernel ms, and where its
 checkout has them the state walk and the packing apart), the batches of
 ``kernels/fse_encode_cases.py`` where it has them, then the zstd compress
-phase (end to end, device and host entropy).
+phase (end to end, device and host entropy).  With ``--huffman-encode``
+each side records the zstd compress path's Huffman batches on the 16 MiB
+cut, times its ``encode_streams`` through the wrapper on them (mean of 10
+passes) and the device work that the wrapper queues (the kernel, and any
+fill of the plane; 50 passes queued behind a sleep kernel, so that the
+host's rate of launching does not count), runs the batches of ``kernels/huffman_encode_cases.py`` and times
+its encoder's host steps (``chip_smoke.huffman_steps``) where its checkout
+has them, then the zstd compress phase.
 
 Prints the card's name and power limit first, then each side's lines as
 the phases print them.  Needs a CUDA GPU; exits non-zero if a side fails.
@@ -92,6 +99,41 @@ if MODE == "--fse-encode":
         cs.phase_fse_encode_cases(dev, fse_torch)
     cs.phase_zstd(cut, corpus, rec["frame"], dev, DeviceCompressor, huffman_torch, fse_torch)
     sys.exit(0)
+if MODE == "--huffman-encode":
+    import json
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.kernels import _build
+    _build.lib()
+    native.get_lib()
+    cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
+    rec = cs.record_zstd_batches(cut, dev, DeviceCompressor, huffman_torch, fse_torch)
+    runs = [([torch.from_numpy(b[k]).to(dev) for k in huffman_torch.BATCH_ARGS], b["n_words"])
+            for b in rec["huffman"]]
+
+    def wrapper():
+        for t, n in runs:
+            huffman_torch.encode_streams(*t, n_words=n)
+
+    ms = cs.cuda_ms(wrapper, 10)
+    wrapper()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50 * 200_000)  # holds the stream while the host queues 50 passes
+    start.record()
+    for _ in range(50):
+        wrapper()
+    end.record()
+    end.synchronize()
+    print(f"huffman_encode: through the wrapper {ms:.4f} ms (mean of 10 passes), its device "
+          f"work {start.elapsed_time(end) / 50:.4f} ms (mean of 50 queued passes)")
+    if hasattr(cs, "phase_huffman_encode_cases"):
+        cs.phase_huffman_encode_cases(dev, huffman_torch)
+    if hasattr(cs, "huffman_steps"):
+        for _ in range(2):
+            steps = cs.huffman_steps(rec["huffman_calls"], dev, huffman_torch)
+            print("huffman_encode host steps (ms, median of 7): " + json.dumps(steps))
+    cs.phase_zstd(cut, corpus, rec["frame"], dev, DeviceCompressor, huffman_torch, fse_torch)
+    sys.exit(0)
 if MODE != "--extract":
     cs.phase_tokenize(corpus, dev, lz4_torch)
     cut = cs.zstd_cut(corpus, cs.ZSTD_BYTES)
@@ -110,12 +152,13 @@ KEEP = ("tokenize (", "tokenize mode=", "lz4_tokenize", "lz4_est", "replay (", "
         "main path phases", "main path launches", "lz4_parse",
         "zstd extract main path rep", "zstd extract main path phases",
         "fse_decode (zstd extract)", "huffman_decode (zstd extract)", "xxh3_batch", "xxh3 case",
-        "fse_encode", "zstd main path", "zstd host-entropy", "zstd first run")
+        "fse_encode", "zstd main path", "zstd host-entropy", "zstd first run", "huffman_encode")
 
 
 def main() -> int:
     args = sys.argv[1:]
-    modes = ("--extract", "--lz4-extract", "--lz4-parse", "--xxh3-batch", "--fse-encode")
+    modes = ("--extract", "--lz4-extract", "--lz4-parse", "--xxh3-batch", "--fse-encode",
+             "--huffman-encode")
     mode = args[0] if args[:1] and args[0] in modes else None
     if mode:
         args = args[1:]

@@ -24,8 +24,9 @@ from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
 from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import (fse_cases, fse_encode_cases, fse_torch, huffman_cases,
-                                     huffman_torch, lz4_parse_cases, lz4_torch, replay_cases,
-                                     tokenize_cases, xxh3_cases, xxh3_torch)
+                                     huffman_encode_cases, huffman_torch, lz4_parse_cases,
+                                     lz4_torch, replay_cases, tokenize_cases, xxh3_cases,
+                                     xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -334,10 +335,59 @@ def test_huffman_encode_kernel_matches_plain(cuda):
     want = huffman_torch.encode_streams_plain(*args, n_words=batch["n_words"])
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert got[1].cpu().numpy().tolist() == batch["total_bits"].tolist()
+    assert got[1].cpu().numpy().tolist() == batch["rows"][:, 3].tolist()
     enc = huffman_torch.TorchHuffmanEncoder(cuda)
     assert enc.encode_batch(streams, tables) == [
         zhuf._encode_stream(s, t) for s, t in zip(streams, tables)]
+
+
+_HUFFMAN_ENCODE_CASES = huffman_encode_cases.cases()
+
+
+@pytest.mark.parametrize("name", list(_HUFFMAN_ENCODE_CASES))
+def test_huffman_encode_kernel_matches_plain_on_cases(cuda, name):
+    """Every batch of ``huffman_encode_cases.py``; the bytes equal the host
+    oracle's."""
+    case = _HUFFMAN_ENCODE_CASES[name]
+    b = huffman_encode_cases.batch(case)
+    args = [torch.from_numpy(b[k]).to(cuda) for k in huffman_torch.BATCH_ARGS]
+    got = huffman_torch.encode_streams(*args, n_words=b["n_words"])
+    want = huffman_torch.encode_streams_plain(*args, n_words=b["n_words"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    enc = huffman_torch.TorchHuffmanEncoder(cuda)
+    assert getattr(enc, case.method)(case.items, case.tables) == \
+        huffman_encode_cases.host_payloads(case)
+
+
+def test_huffman_encode_kernel_writes_every_word_once_and_no_other(cuda):
+    """No memset: the kernel stores every word of the plane (a plane filled
+    with ones comes back equal to the plain version's), and nothing beside
+    it (the guard words around it keep their ones)."""
+    case = _HUFFMAN_ENCODE_CASES["tiny streams beside a long one"]
+    b = huffman_encode_cases.batch(case)
+    args = [torch.from_numpy(b[k]).to(cuda) for k in huffman_torch.BATCH_ARGS]
+    guarded = torch.full((b["n_words"] + 64,), -1, dtype=torch.int32, device=cuda)
+    total = torch.empty(len(b["rows"]), dtype=torch.int32, device=cuda)
+    huffman_torch._encode_launch(args, guarded[32:-32], total)
+    want = huffman_torch.encode_streams_plain(*args, n_words=b["n_words"])
+    torch.cuda.synchronize()
+    assert torch.equal(guarded[32:-32], want[0]) and torch.equal(total, want[1])
+    assert (guarded[:32] == -1).all() and (guarded[-32:] == -1).all()
+
+
+def test_huffman_encode_raises_when_the_totals_disagree(cuda, monkeypatch):
+    case = _HUFFMAN_ENCODE_CASES["group and tile edges"]
+    build = huffman_torch.build_batch
+
+    def off_by_one(streams, tables):
+        b = build(streams, tables)
+        b["rows"][2, 3] += 1
+        return b
+
+    monkeypatch.setattr(huffman_torch, "build_batch", off_by_one)
+    with pytest.raises(RuntimeError, match="disagree"):
+        huffman_torch.TorchHuffmanEncoder(cuda).encode_batch(case.items, case.tables)
 
 
 def _seq_blocks():

@@ -93,31 +93,34 @@ def test_missing_symbol_raises():
 
 def test_plain_kernel_contract_against_jax_encode_streams():
     """The flat-batch plain version against ``huffman_jax.encode_streams`` on
-    the padded batch of the same streams: the same bits and total_bits."""
+    the padded batch of the same streams, each stream placed at the start of
+    JAX's fixed row of words: the same bits and total_bits."""
     rng = np.random.default_rng(11)
     streams = [_stream(n, 40, 0.3, rng) for n in (96, 1000, 31, 2500)]
     tables = [_huff_table_pair(s.tobytes())[0] for s in streams]
     tabs = huffman_torch.pack_tables(tables)
+    entries = tabs.view(np.uint16).astype(np.int32)
     counts = np.array([len(s) for s in streams])
+    bits = np.array([int(t.lengths[s].astype(np.int64).sum()) for s, t in zip(streams, tables)])
     nw = huffman_jax.words_needed(max(counts))
-    word_off = np.arange(len(streams) + 1, dtype=np.int64) * nw  # JAX's fixed rows
-    rows = np.stack([np.cumsum(counts) - counts, counts], axis=1).astype(np.int64)
+    S = len(streams)
+    rows = np.stack([np.cumsum(counts) - counts, counts, np.arange(S), bits,
+                     np.arange(S) * nw], axis=1).astype(np.int64)  # JAX's fixed rows
     words, total = huffman_torch.encode_streams_plain(
         torch.from_numpy(np.concatenate(streams)), torch.from_numpy(rows),
-        torch.from_numpy(tabs), torch.from_numpy(word_off), n_words=int(word_off[-1]))
+        torch.from_numpy(tabs), n_words=S * nw)
     L = 2560
-    syms = np.zeros((len(streams), L), np.uint8)
+    syms = np.zeros((S, L), np.uint8)
     for i, s in enumerate(streams):
         syms[i, :len(s)] = s
-    jw, jt = huffman_jax.encode_streams(
-        syms, counts.astype(np.int32), (tabs & 0xFFFF).astype(np.int32),
-        (tabs >> 16).astype(np.int32), n_words=nw)
+    jw, jt = huffman_jax.encode_streams(syms, counts.astype(np.int32), entries & 0xFFF,
+                                        entries >> 12, n_words=nw)
     assert np.array_equal(total.numpy(), np.asarray(jt))
-    assert np.array_equal(words.numpy().view(np.uint32).reshape(len(streams), nw),
-                          np.asarray(jw))
+    assert np.array_equal(total.numpy(), bits)
+    assert np.array_equal(words.numpy().view(np.uint32).reshape(S, nw), np.asarray(jw))
 
 
 def test_wrapper_rejects_other_devices():
     t = torch.zeros(4, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        huffman_torch.encode_streams(t, t, t, t, n_words=1)
+        huffman_torch.encode_streams(t, t, t, n_words=1)

@@ -135,7 +135,9 @@ def lib() -> ctypes.CDLL:
             cdll.zp_xxh3_stream.restype = i
             cdll.zp_xxh3_stream.argtypes = [p, i64, p, p, p, p, p]
             cdll.zp_huffman_encode.restype = i
-            cdll.zp_huffman_encode.argtypes = [p, p, p, p, i, p, p, p]
+            cdll.zp_huffman_encode.argtypes = [p, p, p, i, p, p, p]
+            cdll.zp_launch_floor.restype = i
+            cdll.zp_launch_floor.argtypes = [i, p]
             cdll.zp_fse_encode.restype = i
             cdll.zp_fse_encode.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p]
             cdll.zp_fse_encode_occupancy.restype = i

@@ -13,13 +13,14 @@ and the decode half (``decode_streams_scan`` / ``decode_streams`` and
   a GPU.  It never falls back: a build or launch error raises.
 
 The encode contract is ``codecs/zstd/huffman.py:_encode_stream``'s.  A
-batch is one flat uint8 symbol buffer with ``(start, n)`` rows, one
-``(256,)`` table per stream packed as ``code | len << 16``, and the first
-word of each stream's output in one flat u32 plane (``word_off``).  In
-stream ``s``, symbol ``i`` occupies bits ``[total_bits -
-incl_cumsum(len)[i], +len[i])`` of its little-endian plane, so symbol 0
-sits highest, and the sentinel bit sits at ``total_bits``.  The planes are
-returned in an int32 tensor.
+batch is one flat uint8 symbol buffer, one row a stream (``ENCODE_COLS``:
+its symbols ``[start, start + n)``, its table, its ``bits`` as the host
+counted them, and ``word``, the first of the ``bits // 32 + 1`` words it
+owns in one flat u32 plane), and one ``(256,)`` table a distinct table,
+packed ``code | len << 12`` in 16 bits.  In stream ``s``, symbol ``i``
+occupies bits ``[bits - incl_cumsum(len)[i], +len[i])`` of its little-endian
+words, so symbol 0 sits highest, and the sentinel bit sits at ``bits``.
+The planes are returned in an int32 tensor.
 
 The decode contract is ``huffman._decode_one_stream``'s, layout in
 :func:`decode_streams_plain`.
@@ -28,6 +29,7 @@ The decode contract is ``huffman._decode_one_stream``'s, layout in
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -63,111 +65,174 @@ def scatter_bits(n_words: int, pos: torch.Tensor, vals: torch.Tensor) -> torch.T
     return torch.where(plane > 0x7FFFFFFF, plane - (1 << 32), plane).to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# Encode
+# ---------------------------------------------------------------------------
+
+#: the columns of an encode batch's ``rows``
+ENCODE_COLS = ("start", "n", "table", "bits", "word")
+#: the tensor arguments of :func:`encode_streams`, in order
+BATCH_ARGS = ("syms", "rows", "tables")
+#: a stream's bits must fit the kernel's int32 positions
+MAX_STREAM_BITS = (1 << 31) - 64
+
+
 def pack_tables(tables) -> np.ndarray:
-    """``(S, 256)`` int32 ``code | len << 16`` rows from
-    ``codecs.zstd.huffman.HuffEncodeTable``s (symbols past a table's end
-    have length 0)."""
+    """``(T, 256)`` int16 rows holding ``code | len << 12`` as 16 bits, one a
+    ``codecs.zstd.huffman.HuffEncodeTable`` (symbols past a table's end have
+    length 0; each code cut to its length)."""
     out = np.zeros((len(tables), 256), dtype=np.int64)
-    for i, t in enumerate(tables):
-        lens = np.asarray(t.lengths, dtype=np.int64)
-        if (lens > MAX_BITS).any():
-            raise CompressError(f"huffman code length above {MAX_BITS}")
-        codes = np.asarray(t.codes, dtype=np.int64) & 0xFFFF
-        out[i, : len(codes)] = codes
-        out[i, : len(lens)] |= lens << 16
-    return out.astype(np.int32)
+    for key, shift in (("lengths", 12), ("codes", 0)):
+        cols = [getattr(t, key) for t in tables]
+        n = np.array([len(c) for c in cols], dtype=np.int64)
+        if n.sum():
+            first = np.arange(len(tables)) * 256 - (np.cumsum(n) - n)
+            at = np.repeat(first, n) + np.arange(n.sum())
+            vals = np.concatenate(cols).astype(np.int64)
+            out.reshape(-1)[at] |= (vals << shift) if shift else vals & 0xFFF
+    lens = out >> 12
+    if (lens > MAX_BITS).any():
+        raise CompressError(f"huffman code length above {MAX_BITS}")
+    out = (lens << 12) | (out & ((1 << lens) - 1))
+    return out.astype(np.uint16).view(np.int16)
 
 
-def _check(syms, rows, tables, word_off) -> None:
-    S = rows.shape[0]
+def _check(syms, rows, tables) -> None:
     if syms.dtype != torch.uint8 or syms.dim() != 1:
         raise ValueError("syms must be a flat uint8 tensor")
-    if rows.dtype != torch.int64 or rows.shape != (S, 2):
-        raise ValueError("rows must be (S, 2) int64 (start, n)")
-    if tables.dtype != torch.int32 or tables.shape != (S, 256):
-        raise ValueError("tables must be (S, 256) int32 code | len << 16")
-    if word_off.dtype != torch.int64 or word_off.shape != (S + 1,):
-        raise ValueError("word_off must be (S + 1,) int64")
+    if rows.dtype != torch.int64 or rows.dim() != 2 or rows.shape[1] != len(ENCODE_COLS):
+        raise ValueError(f"rows must be (S, {len(ENCODE_COLS)}) int64 {ENCODE_COLS}")
+    if tables.dtype != torch.int16 or tables.dim() != 2 or tables.shape[1] != 256:
+        raise ValueError("tables must be (T, 256) int16 code | len << 12")
 
 
-def encode_streams_plain(syms, rows, tables, word_off, *, n_words: int):
+def encode_streams_plain(syms, rows, tables, *, n_words: int):
     """Batched Huffman stream encode in plain PyTorch.
 
-    syms: flat uint8; rows: (S, 2) int64 ``(start, n)``; tables: (S, 256)
-    int32 ``code | len << 16``; word_off: (S + 1,) int64, stream ``s``
-    owning words ``[word_off[s], word_off[s + 1])`` of the plane.  Returns
-    ``(words (n_words,) int32, total_bits (S,) int32)``; words no stream
-    reaches stay zero."""
-    _check(syms, rows, tables, word_off)
+    syms: flat uint8; rows: (S, 5) int64 (``ENCODE_COLS``); tables: (T,
+    256) int16 ``code | len << 12``.  Stream ``s`` owns words ``[word,
+    word + bits // 32 + 1)`` of the plane; the ranges must not overlap.
+    Returns ``(words (n_words,) int32,
+    total_bits (S,) int32)``: ``total_bits`` is each stream's sum of code
+    lengths, which must equal ``bits`` (where it does not, the words are
+    undefined, and here the call may raise); words no stream owns are zero here (the CUDA kernel leaves
+    them unwritten, and :func:`build_batch` makes none)."""
+    _check(syms, rows, tables)
     dev = syms.device
     S = rows.shape[0]
-    n = rows[:, 1]
+    start, n, tab, bits, word = rows.unbind(1)
     sid = torch.repeat_interleave(torch.arange(S, device=dev), n)
     local = torch.arange(sid.numel(), device=dev) - (torch.cumsum(n, 0) - n)[sid]
-    entry = tables.to(torch.int64)[sid, syms[rows[sid, 0] + local].to(torch.int64)]
-    lens = entry >> 16
-    codes = entry & ((1 << lens) - 1)
+    entry = tables.to(torch.int64)[tab[sid], syms[start[sid] + local].to(torch.int64)] & 0xFFFF
+    lens = entry >> 12
+    codes = entry & 0xFFF & ((1 << lens) - 1)
     total = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(0, sid, lens)
     incl = torch.cumsum(lens, 0) - (torch.cumsum(total, 0) - total)[sid]
-    base = word_off[:-1] * 32
-    pos = torch.cat([base[sid] + total[sid] - incl, base + total])
+    base = word * 32 + bits
+    pos = torch.cat([base[sid] - incl, base])
     vals = torch.cat([codes, torch.ones_like(total)])  # codes, then sentinels
     return scatter_bits(n_words, pos, vals), total.to(torch.int32)
 
 
-def encode_streams(syms, rows, tables, word_off, *, n_words: int):
-    """:func:`encode_streams_plain` on the CPU; on a GPU, the CUDA encoder
-    (``csrc/huffman_encode.cu``).  Same inputs, same outputs."""
-    if syms.device.type == "cpu":
-        return encode_streams_plain(syms, rows, tables, word_off, n_words=n_words)
-    if syms.device.type != "cuda":
-        raise ValueError("encode_streams takes CPU or CUDA tensors")
-    _check(syms, rows, tables, word_off)
-    for name, t in (("syms", syms), ("rows", rows), ("tables", tables), ("word_off", word_off)):
-        if t.device != syms.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {syms.device}")
-    S = rows.shape[0]
-    words = torch.zeros(n_words, dtype=torch.int32, device=syms.device)
-    total = torch.empty(S, dtype=torch.int32, device=syms.device)
-    if S == 0:
-        return words, total
+def _encode_launch(args, words, total) -> None:
+    """One launch of ``csrc/huffman_encode.cu`` on checked tensors, writing
+    ``words`` and ``total`` (made by the caller: the launch alone, for
+    timing)."""
+    syms, rows, tables = args
     lib = _build.lib()
     with torch.cuda.device(syms.device):
         rc = lib.zp_huffman_encode(
-            syms.data_ptr(), rows.data_ptr(), tables.data_ptr(), word_off.data_ptr(), S,
+            syms.data_ptr(), rows.data_ptr(), tables.data_ptr(), rows.shape[0],
             words.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(syms.device).cuda_stream)
     _build.check(rc, "huffman_encode")
-    LAUNCHES["huffman_encode"] += 1
+
+
+def encode_streams(syms, rows, tables, *, n_words: int):
+    """:func:`encode_streams_plain` on the CPU; on a GPU, the CUDA encoder
+    (``csrc/huffman_encode.cu``, a CTA a stream).  Same inputs, same outputs
+    where every word of the plane belongs to a stream, as in a batch of
+    :func:`build_batch` (the kernel writes no other word, and allocates the
+    plane with ``torch.empty``).  ``syms`` and ``tables`` must start on 16
+    bytes, and no stream's ``bits`` reach :data:`MAX_STREAM_BITS`."""
+    args = (syms, rows, tables)
+    if syms.device.type == "cpu":
+        return encode_streams_plain(*args, n_words=n_words)
+    if syms.device.type != "cuda":
+        raise ValueError("encode_streams takes CPU or CUDA tensors")
+    _check(*args)
+    for name, t in zip(BATCH_ARGS, args):
+        if t.device != syms.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {syms.device}")
+    if syms.data_ptr() % 16 or tables.data_ptr() % 16:
+        raise ValueError("syms and tables must start on 16 bytes")
+    words = torch.empty(n_words, dtype=torch.int32, device=syms.device)
+    total = torch.empty(rows.shape[0], dtype=torch.int32, device=syms.device)
+    if rows.shape[0]:
+        _encode_launch(args, words, total)
+        LAUNCHES["huffman_encode"] += 1
     return words, total
+
+
+def _batch(syms: np.ndarray, counts: np.ndarray, tab_idx: np.ndarray, tabs: np.ndarray) -> dict:
+    """The batch of rows ``counts`` back to back in ``syms``, row ``s`` coded
+    by ``tabs[tab_idx[s]]``: each row's bits counted from one histogram of
+    the whole batch, the rows' words back to back."""
+    S = len(counts)
+    lens = (tabs.view(np.uint16) >> 12).astype(np.int64)[tab_idx]  # (S, 256)
+    hist = np.bincount(np.repeat(np.arange(S, dtype=np.int64) * 256, counts) + syms,
+                       minlength=S * 256).reshape(S, 256)
+    if (hist[lens == 0] > 0).any():
+        raise CompressError("huffman table misses a packed symbol")
+    bits = (hist * lens).sum(1)
+    if (bits >= MAX_STREAM_BITS).any():
+        raise ValueError("a stream's bits are beyond the kernel's int32 bit positions")
+    size = bits // 32 + 1
+    rows = np.stack([np.cumsum(counts) - counts, counts, tab_idx, bits, np.cumsum(size) - size],
+                    axis=1)
+    return {"syms": syms, "rows": rows.astype(np.int64).reshape(S, len(ENCODE_COLS)),
+            "tables": tabs, "n_words": int(size.sum())}
+
+
+def _distinct(tables) -> tuple[np.ndarray, list]:
+    """Each table's index among the distinct table objects, and those."""
+    rows: dict[int, int] = {}
+    distinct = []
+    for t in tables:
+        if id(t) not in rows:
+            rows[id(t)] = len(distinct)
+            distinct.append(t)
+    return np.array([rows[id(t)] for t in tables], dtype=np.int64), distinct
 
 
 def build_batch(streams: list[np.ndarray], tables) -> dict:
     """The flat batch of :func:`encode_streams` as numpy arrays (``syms``,
-    ``rows``, ``tables``, ``word_off``), plus ``n_words`` and each stream's
-    ``total_bits``, counted here from its histogram; each stream owns the
-    words of its payload and sentinel.  Raises CompressError, as
-    ``huffman._encode_stream`` does, when a stream holds a symbol its table
-    has no code for."""
+    ``rows``, ``tables``) plus ``n_words``: stream ``i`` coded by
+    ``tables[i]`` (a ``HuffEncodeTable``; streams that share a table object
+    share its row).  Raises CompressError, as ``huffman._encode_stream``
+    does, when a stream holds a symbol its table has no code for."""
     streams = [np.asarray(s, dtype=np.uint8) for s in streams]
-    tabs = pack_tables(tables)
-    lens = (tabs >> 16).astype(np.int64)
-    total = np.zeros(len(streams), dtype=np.int64)
-    for i, s in enumerate(streams):
-        hist = np.bincount(s, minlength=256)
-        if (hist[lens[i] == 0] > 0).any():
-            raise CompressError("huffman table misses a packed symbol")
-        total[i] = hist @ lens[i]
-    counts = np.array([len(s) for s in streams], dtype=np.int64)
-    word_off = np.concatenate([[0], np.cumsum((total + 1 + 31) // 32)]).astype(np.int64)
-    return {"syms": np.concatenate(streams),
-            "rows": np.stack([np.cumsum(counts) - counts, counts], axis=1),
-            "tables": tabs, "word_off": word_off, "n_words": int(word_off[-1]),
-            "total_bits": total}
+    idx, distinct = _distinct(tables)
+    syms = np.concatenate(streams) if streams else np.zeros(0, np.uint8)
+    return _batch(syms, np.array([len(s) for s in streams], dtype=np.int64), idx,
+                  pack_tables(distinct))
 
 
-#: the tensor arguments of :func:`encode_streams`, in order
-BATCH_ARGS = ("syms", "rows", "tables", "word_off")
+def build_4stream_batch(lit_blocks: list[np.ndarray], tables) -> tuple[dict, np.ndarray]:
+    """The batch of ``huffman.encode_4stream`` over many blocks: each block's
+    literals split into four streams of ``ceil(n / 4)`` symbols, the last
+    the rest, coded by the block's table.  Returns the batch and which
+    blocks are in it (those whose four parts are not empty)."""
+    blocks = [np.asarray(b, dtype=np.uint8) for b in lit_blocks]
+    n = np.array([len(b) for b in blocks], dtype=np.int64)
+    per = (n + 3) // 4
+    ok = (per > 0) & (n - 3 * per > 0)
+    idx, distinct = _distinct([t for t, k in zip(tables, ok) if k])
+    kept = np.flatnonzero(ok)
+    syms = (np.concatenate([blocks[i] for i in kept]) if kept.size
+            else np.zeros(0, np.uint8))
+    counts = np.stack([per[kept]] * 3 + [n[kept] - 3 * per[kept]], axis=1).reshape(-1)
+    return _batch(syms, counts, np.repeat(idx, 4), pack_tables(distinct)), ok
 
 
 class TorchHuffmanEncoder:
@@ -180,47 +245,42 @@ class TorchHuffmanEncoder:
     def __init__(self, device):
         self.device = torch.device(device)
 
+    def _payloads(self, batch: dict) -> tuple[bytes, list, list]:
+        """Encode ``batch``; returns the plane's bytes, and each row's first
+        byte in them and its payload's bytes."""
+        words, total = encode_streams(
+            *(torch.from_numpy(batch[k]).to(self.device) for k in BATCH_ARGS),
+            n_words=batch["n_words"])
+        rows = batch["rows"]
+        if not np.array_equal(total.cpu().numpy(), rows[:, 3]):
+            raise RuntimeError("huffman_encode: total_bits disagree with the host's count")
+        return (words.cpu().numpy().tobytes(), (4 * rows[:, 4]).tolist(),
+                ((rows[:, 3] + 8) // 8).tolist())
+
     def encode_batch(self, streams: list[np.ndarray], tables) -> list[bytes]:
         """streams[i]: uint8 symbol array; tables[i]: HuffEncodeTable for
         stream i.  Returns the encoded byte payload of each stream."""
         if not streams:
             return []
-        batch = build_batch(streams, tables)
-        words, total = encode_streams(
-            *(torch.from_numpy(batch[k]).to(self.device) for k in BATCH_ARGS),
-            n_words=batch["n_words"])
-        total_bits = batch["total_bits"]
-        if not np.array_equal(total.cpu().numpy(), total_bits):
-            raise RuntimeError("huffman_encode: total_bits disagree with the host's count")
-        plane = words.cpu().numpy().tobytes()
-        off = batch["word_off"]
-        return [plane[4 * int(off[i]): 4 * int(off[i]) + (int(total_bits[i]) + 8) // 8]
-                for i in range(len(streams))]
+        data, at, nbytes = self._payloads(build_batch(streams, tables))
+        return [data[a:a + k] for a, k in zip(at, nbytes)]
 
     def encode_4stream_batch(self, lit_blocks: list[np.ndarray], tables) -> list[bytes | None]:
         """Device analog of ``huffman.encode_4stream`` for a batch of blocks:
         each block's literals split into 4 sub-streams, all encoded in one
         launch; jump table and concatenation on the host.  ``None`` where a
         part is empty or one of the first three exceeds 0xFFFF bytes."""
-        streams, owner, plan = [], [], []
-        for bi, arr in enumerate(lit_blocks):
-            n = len(arr)
-            per = (n + 3) // 4
-            parts = [arr[:per], arr[per:2 * per], arr[2 * per:3 * per], arr[3 * per:]]
-            if any(len(p) == 0 for p in parts):
-                plan.append(None)
-                continue
-            plan.append(len(streams))
-            streams += parts
-            owner += [bi] * 4
-        encoded = self.encode_batch(streams, [tables[o] for o in owner])
-        out: list[bytes | None] = []
-        for base in plan:
-            es = None if base is None else encoded[base:base + 4]
-            if es is None or any(len(e) > 0xFFFF for e in es[:3]):
-                out.append(None)
-                continue
-            out.append(b"".join(len(e).to_bytes(2, "little") for e in es[:3]) + b"".join(es))
+        batch, ok = build_4stream_batch(lit_blocks, tables)
+        out: list[bytes | None] = [None] * len(lit_blocks)
+        if not ok.any():
+            return out
+        data, at, nbytes = self._payloads(batch)
+        for j, b in enumerate(np.flatnonzero(ok).tolist()):
+            k = nbytes[4 * j:4 * j + 4]
+            if max(k[:3]) <= 0xFFFF:
+                a = at[4 * j:4 * j + 4]
+                out[b] = b"".join([struct.pack("<3H", *k[:3])]
+                                  + [data[x:x + n] for x, n in zip(a, k)])
         return out
 
 

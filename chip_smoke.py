@@ -96,7 +96,22 @@
     the port's lz4f decoder; ``lz4_torch.entry("cuda")`` called once and
     ``compress_block`` on a 16 KiB sample, decoded by the host block decoder;
 11. runs the port's CLI (``c``, then ``t`` and ``x`` with a byte compare);
-12. prints one JSON line of per-kernel results (each kernel's launches on
+12. multi-device and multi-host (``phase_mesh``): the mesh of the visible
+    cards and a mesh that names cuda:0 twice each give the one-device
+    frames (LZ4 of the corpus, zstd of the 16 MiB cut, the 8 KiB
+    dictionary frames of the cut's first 4 MiB), with the tokenizer
+    launched once a shard a step; the zstd entry extracts with its decode
+    batches sharded over each mesh; ``dryrun_multichip(2, ["cuda:0",
+    "cuda:0"])``; ``write_archive_parallel`` of the CLI's files reads
+    back; two processes share the card over gloo (``chip_smoke.py --rank
+    R 2 PORT DIR``) for ``compress_multihost`` of the cut and
+    ``build_archive_multihost`` of twelve corpus slices, and agree with
+    each other and with this process; ``compress_file_elastic`` with 2
+    workers on cuda, one crashed after a chunk, gives the no-fault stream,
+    and a checkpoint resume equals an uninterrupted run; prints the times
+    beside the card and a JSON ``mesh`` line.  Two shards on one card
+    measure the sharding's overhead, not a speed-up;
+13. prints one JSON line of per-kernel results (each kernel's launches on
     its path, its error against the plain version, its time, the plain
     version's, and the least time the card could take, ``bound_ms``), then,
     last, ``{"ok": true, "device": {...}}``.
@@ -1301,13 +1316,14 @@ def train_blob(cut: bytes) -> bytes:
     return train_dictionary([cut[i:i + 512] for i in range(0, 8192, 512)], 2048)
 
 
-def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> dict:
+def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> tuple:
     """The shared-dictionary zstd path at 8 KiB blocks ("pair" mode) and at
-    4 KiB blocks ("u16" mode); each frame set decodes to the cut."""
+    4 KiB blocks ("u16" mode); each frame set decodes to the cut.  Returns
+    the launches and the frames of each block size."""
     from zpack_tpu_torch.codecs.zstd import frame as ZF
     from zpack_tpu_torch.utils.observe import metrics
 
-    launches = {}
+    launches, frames = {}, {}
     mb = len(cut) / 1e6
     for B, key in ((8192, "lz4_tokenize"), (4096, "lz4_tokenize_u16")):
         dc = DeviceCompressor(device, block_size=B)
@@ -1331,7 +1347,8 @@ def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> 
         print(f"dictionary path B={B}: the host decoder with the dictionary gives the cut back "
               f"({time.perf_counter() - t0:.3f} s)")
         launches[B] = run
-    return launches
+        frames[B] = comp
+    return launches, frames
 
 
 def phase_lz4_u16(corpus: bytes, device, DeviceCompressor, lz4_torch) -> dict:
@@ -1376,12 +1393,17 @@ def phase_entry(corpus: bytes, device, lz4_torch, lz4block) -> dict:
     return run
 
 
+def cli_files(corpus: bytes) -> dict:
+    """The four files of the CLI phase."""
+    return {"big.bin": corpus[: 16 << 20], "mid.bin": corpus[30 << 20 : (30 << 20) + 300000],
+            "small.txt": corpus[:30000], "empty": b""}
+
+
 def phase_cli(corpus: bytes) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "src")
         os.makedirs(src)
-        files = {"big.bin": corpus[: 16 << 20], "mid.bin": corpus[30 << 20 : (30 << 20) + 300000],
-                 "small.txt": corpus[:30000], "empty": b""}
+        files = cli_files(corpus)
         for name, data in files.items():
             with open(os.path.join(src, name), "wb") as f:
                 f.write(data)
@@ -1410,6 +1432,267 @@ def phase_cli(corpus: bytes) -> None:
         if found != files:
             raise AssertionError("CLI extract: files differ")
         print(f"CLI: c (device), t (All files OK), x + byte compare of {len(files)} files: OK")
+
+
+@contextlib.contextmanager
+def codecs_on(device):
+    """The codecs' device routes on ``device`` for a block, the setting put
+    back afterwards."""
+    from zpack_tpu_torch import codecs, engine
+
+    setting = codecs.device_setting()
+    engine.install(device)
+    try:
+        yield
+    finally:
+        codecs.set_device(setting)
+
+
+def shard_launches(n_blocks: int, blocks_per_step: int, shards: int) -> int:
+    """The tokenizer launches of a ``DeviceCompressor`` run: one a shard
+    that holds a block, steps of ``blocks_per_step`` blocks a shard."""
+    return sum(1 for step in range(0, n_blocks, blocks_per_step * shards)
+               for k in range(shards) if step + k * blocks_per_step < n_blocks)
+
+
+def archive_files(corpus: bytes) -> list:
+    """The entries of the two-rank archive: twelve 64 KiB slices, four from
+    each third of the corpus (prose, records, noise)."""
+    third = len(corpus) // 3
+    return [(f"part{i:02d}.bin", corpus[base + j * (1 << 20): base + j * (1 << 20) + (64 << 10)])
+            for i, (base, j) in enumerate((b, j) for b in (0, third, 2 * third) for j in range(4))]
+
+
+def rank_worker(argv: list) -> int:
+    """One rank of the two-rank run (``chip_smoke.py --rank R WORLD PORT
+    DIR``): joins the gloo group, runs ``compress_multihost`` on the cut in
+    ``DIR/cut.bin`` and ``build_archive_multihost`` on the corpus slices in
+    ``DIR/files.bin`` on the card, and writes both results to ``DIR``."""
+    import pickle
+
+    from zpack_tpu_torch.parallel import distributed
+
+    from zpack_tpu_torch import engine
+
+    rank, world, port, tmp = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    engine.install("cuda")
+    distributed.initialize(f"127.0.0.1:{port}", world, rank)
+    with open(os.path.join(tmp, "cut.bin"), "rb") as f:
+        cut = f.read()
+    with open(os.path.join(tmp, "files.bin"), "rb") as f:
+        files = pickle.load(f)
+    t0 = time.perf_counter()
+    frame = distributed.compress_multihost(cut, 1, device="cuda")
+    t_lz4 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch = distributed.build_archive_multihost(files, level=3)
+    t_arch = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump({"frame": frame, "archive": arch, "lz4_s": t_lz4, "archive_s": t_arch}, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def run_two_ranks(tmp: str, timeout: float = 300.0) -> list:
+    """Start two ranks of :func:`rank_worker` on the card, wait for both
+    (killing them on the timeout) and return their results."""
+    import pickle
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), "2",
+                               str(port), tmp], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in (1, 0)]
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"a rank failed ({p.returncode}): {out[-2000:]}{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r in (0, 1):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def phase_mesh(corpus: bytes, cut: bytes, blob: bytes, zcomp: bytes, zstd_frame: bytes,
+               dict_frame: bytes, device, card: str, lz4_torch) -> dict:
+    """Multi-device and multi-host: (a) the mesh of the visible cards and a
+    mesh that names cuda:0 twice give the one-device frames (LZ4 of the
+    corpus, zstd of the cut, the 8 KiB dictionary path on the cut's first 4
+    MiB), the tokenizer launched once a shard a step; (b) the zstd entry
+    extracted with its decode batches sharded over the mesh; (c)
+    ``dryrun_multichip(2, ["cuda:0", "cuda:0"])``; (d)
+    ``write_archive_parallel`` of the CLI phase's files reads back; (e) two
+    processes share the card over gloo for ``compress_multihost`` and
+    ``build_archive_multihost``, and agree with each other and with this
+    process; (f) the elastic driver on the card with one worker crashed
+    recovers the no-fault stream, and a checkpoint resume equals an
+    uninterrupted run.  Two shards on one card measure the sharding's
+    overhead, not a speed-up."""
+    import pickle
+
+    from zpack_tpu_torch import Reader, Writer
+    from zpack_tpu_torch.codecs.zstd import frame as ZF
+    from zpack_tpu_torch.parallel import archive, checkpoint, distributed, elastic, multichip
+    from zpack_tpu_torch.parallel.extract import decompress_zstd_device
+    from zpack_tpu_torch.parallel.pipeline import DeviceCompressor, make_mesh
+
+    t_phase = time.perf_counter()
+    meshes = {"cards": make_mesh(), "cuda:0 twice": make_mesh(["cuda:0", "cuda:0"])}
+    print(f"mesh: {torch.cuda.device_count()} visible card(s); meshes "
+          + ", ".join(f"{k} {m.shape} {[str(d) for d in m.devices]}" for k, m in meshes.items()))
+    B = 64 << 10
+    nb = -(-len(corpus) // B)
+    t0 = time.perf_counter()
+    one = DeviceCompressor(device).compress(corpus)
+    torch.cuda.synchronize()
+    times = {"lz4_s": {"one device": time.perf_counter() - t0}, "zstd_s": {}, "dict_s": {},
+             "extract_s": {}}
+    # zstd and dictionary runs: steps of half the blocks a shard, so that
+    # two shards both tokenize
+    zbps = -(-len(cut) // B) // 2
+    piece = cut[: 4 << 20]
+    dbps = len(piece) // 8192 // 2
+    for name, mesh in meshes.items():
+        dc = DeviceCompressor(mesh)
+        lz4_torch.reset_launches()
+        t0 = time.perf_counter()
+        frame = dc.compress(corpus)
+        torch.cuda.synchronize()
+        times["lz4_s"][name] = time.perf_counter() - t0
+        want = shard_launches(nb, dc.blocks_per_step, mesh.size)
+        if frame != one:
+            raise AssertionError(f"mesh {name}: the LZ4 frame differs from the one-device frame")
+        if lz4_torch.LAUNCHES["lz4_tokenize"] != want:
+            raise AssertionError(f"mesh {name}: {lz4_torch.LAUNCHES['lz4_tokenize']} tokenizer "
+                                 f"launches, not {want} (one a shard a step)")
+        dc.blocks_per_step = zbps
+        lz4_torch.reset_launches()
+        t0 = time.perf_counter()
+        zframe = dc.compress_zstd(cut, 3)
+        times["zstd_s"][name] = time.perf_counter() - t0
+        want_z = shard_launches(-(-len(cut) // B), zbps, mesh.size)
+        if zframe != zstd_frame:
+            raise AssertionError(f"mesh {name}: the zstd frame differs from the one-device frame")
+        if lz4_torch.LAUNCHES["lz4_tokenize"] != want_z:
+            raise AssertionError(f"mesh {name}: zstd launched the tokenizer "
+                                 f"{lz4_torch.LAUNCHES['lz4_tokenize']} times, not {want_z}")
+        dd = DeviceCompressor(mesh, block_size=8192)
+        dd.blocks_per_step = dbps
+        t0 = time.perf_counter()
+        dframe = dd.compress_zstd(piece, 3, dictionary=blob)
+        times["dict_s"][name] = time.perf_counter() - t0
+        # one frame a block: the piece's frames are the first of the cut's
+        if not dict_frame.startswith(dframe) or ZF.decompress(dframe, dictionary=blob) != piece:
+            raise AssertionError(f"mesh {name}: the dictionary frames differ from the one-device "
+                                 f"frames")
+        t0 = time.perf_counter()
+        out = decompress_zstd_device(zcomp, len(corpus), device=device, mesh=mesh)
+        times["extract_s"][name] = time.perf_counter() - t0
+        if out != corpus:
+            raise AssertionError(f"mesh {name}: the mesh extract does not give the corpus back")
+        print(f"mesh {name} ({mesh.size} shard(s)): LZ4 {len(corpus)} B {times['lz4_s'][name]:.3f} s "
+              f"({want} tokenizer launches), zstd {len(cut)} B {times['zstd_s'][name]:.3f} s "
+              f"({want_z}), dictionary {len(piece)} B {times['dict_s'][name]:.3f} s, extract "
+              f"{times['extract_s'][name]:.3f} s; frames equal the one-device frames ({card})")
+
+    t0 = time.perf_counter()
+    multichip.dryrun_multichip(2, ["cuda:0", "cuda:0"])
+    times["dryrun_s"] = time.perf_counter() - t0
+    print(f"mesh: dryrun_multichip(2, ['cuda:0', 'cuda:0']) passed in {times['dryrun_s']:.3f} s")
+
+    files = list(cli_files(corpus).items())
+    w = Writer.to_heap()
+    w.write_header()
+    w.write_data_header()
+    t0 = time.perf_counter()
+    archive.write_archive_parallel(w, files, meshes["cuda:0 twice"])
+    times["archive_s"] = time.perf_counter() - t0
+    w.write_cdr()
+    w.write_eocdr()
+    r = Reader.from_memory(w.buffer, shared=True)
+    for name, data in files:
+        if r.read_file(name) != data:
+            raise AssertionError(f"write_archive_parallel: {name} does not read back")
+    print(f"mesh: write_archive_parallel of {len(files)} files in {times['archive_s']:.3f} s, "
+          f"every entry reads back")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks_files = archive_files(corpus)
+        with open(os.path.join(tmp, "cut.bin"), "wb") as f:
+            f.write(cut)
+        with open(os.path.join(tmp, "files.bin"), "wb") as f:
+            pickle.dump(ranks_files, f)
+        t0 = time.perf_counter()
+        ranks = run_two_ranks(tmp)
+        times["two_ranks_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frame = distributed.compress_multihost(cut, 1, device="cuda")
+        times["one_rank_lz4_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arch = distributed.build_archive_multihost(ranks_files, level=3)
+        times["one_rank_archive_s"] = time.perf_counter() - t0
+        for key, want in (("frame", frame), ("archive", arch)):
+            if ranks[0][key] != ranks[1][key] or ranks[0][key] != want:
+                raise AssertionError(f"two ranks: the {key} differs between the ranks or from "
+                                     f"this process's")
+        times["rank_lz4_s"] = [x["lz4_s"] for x in ranks]
+        times["rank_archive_s"] = [x["archive_s"] for x in ranks]
+        print(f"two ranks on the card (gloo): compress_multihost {len(cut)} B "
+              f"{times['rank_lz4_s']} s a rank against {times['one_rank_lz4_s']:.3f} s in one "
+              f"process, build_archive_multihost {times['rank_archive_s']} s against "
+              f"{times['one_rank_archive_s']:.3f} s; {times['two_ranks_s']:.3f} s with the "
+              f"processes' start; both ranks equal each other and this process ({card})")
+
+        src = os.path.join(tmp, "input.bin")
+        with open(src, "wb") as f:
+            f.write(cut)
+        chunk = len(cut) // 8  # 2 MiB of the 16 MiB cut
+        want = b"".join(elastic._compress_one(cut[i:i + chunk], "lz4", 1)
+                        for i in range(0, len(cut), chunk))
+        t0 = time.perf_counter()
+        got = elastic.compress_file_elastic(src, os.path.join(tmp, "spool"), method="lz4",
+                                            level=1, chunk_size=chunk, workers=2,
+                                            worker_timeout=300.0, device="cuda",
+                                            fault_args={0: ["--fail-after", "1"]})
+        times["elastic_s"] = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError("elastic: the stream after a worker crash differs from the "
+                                 "no-fault chunks")
+        print(f"elastic: 2 workers on cuda, worker 0 crashed after 1 chunk, "
+              f"{len(cut) // chunk} chunks recovered in {times['elastic_s']:.3f} s; the stream "
+              f"equals the no-fault chunks ({card})")
+
+        spool = os.path.join(tmp, "job.spool")
+        cc = checkpoint.CheckpointedCompressor(spool, method="lz4", chunk_size=chunk)
+        try:
+            cc.compress(cut, fail_after=3)
+            raise AssertionError("checkpoint: the injected failure did not happen")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        t0 = time.perf_counter()
+        resumed = cc.compress(cut)
+        times["checkpoint_resume_s"] = time.perf_counter() - t0
+        whole = checkpoint.CheckpointedCompressor(os.path.join(tmp, "job2.spool"), method="lz4",
+                                                  chunk_size=chunk).compress(cut)
+        if resumed != whole or resumed != want:
+            raise AssertionError("checkpoint: the resumed stream differs from an uninterrupted run")
+        print(f"checkpoint: a resume on cuda after 3 of {len(cut) // chunk} chunks "
+              f"({times['checkpoint_resume_s']:.3f} s) equals an uninterrupted run")
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"mesh": {"card": card, "cards": torch.cuda.device_count(), **times}}))
+    return times
 
 
 def main() -> int:
@@ -1470,13 +1753,17 @@ def main() -> int:
     hc = phase_huffman_cases(device, huffman_torch)
     zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device, modules)
     phase_zstd_fallback(zcomp, corpus, device, extract)
-    del zbuf, zcomp, rec
+    zstd_frame = rec["frame"]
+    del zbuf, rec
     blob = train_blob(cut)
     ep = phase_epilogues(corpus, cut, blob, device, lz4_torch)
-    d_launches = phase_dict(cut, blob, device, DeviceCompressor, lz4_torch)
+    d_launches, d_frames = phase_dict(cut, blob, device, DeviceCompressor, lz4_torch)
     u16_launches = phase_lz4_u16(corpus, device, DeviceCompressor, lz4_torch)
     e_launches = phase_entry(corpus, device, lz4_torch, lz4block)
     phase_cli(corpus)
+    with codecs_on(device):  # the codecs of the elastic and checkpoint references
+        phase_mesh(corpus, cut, blob, zcomp, zstd_frame, d_frames[8192], device, card, lz4_torch)
+    del zcomp
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "zpack_tpu"))
@@ -1564,4 +1851,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

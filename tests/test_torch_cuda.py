@@ -813,3 +813,106 @@ def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):
     e = r.get_file_entry("z.bin")
     comp = bytes(w.buffer[e.offset:e.offset + e.comp_size])
     assert extract.decompress_zstd_batched(comp, len(data), device=cuda) == data
+
+
+# ---------------------------------------------------------------------------
+# The device mesh: two shards of one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def two_shards(cuda):
+    from zpack_tpu_torch.parallel.pipeline import make_mesh
+
+    return make_mesh(["cuda:0", "cuda:0"])
+
+
+def test_make_mesh_names_every_visible_card(cuda):
+    from zpack_tpu_torch.parallel.pipeline import make_mesh
+
+    mesh = make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" and d.index is not None for d in mesh.devices)
+
+
+def test_mesh_frames_on_two_shards_equal_one_device(cuda, two_shards, monkeypatch):
+    monkeypatch.setattr(DeviceCompressor, "BYTES_PER_STEP", 1 << 20)
+    rng = np.random.default_rng(51)
+    data = _text(5 << 20, 52) + rng.integers(0, 256, 333333, dtype=np.uint8).tobytes()
+    one, two = DeviceCompressor(cuda), DeviceCompressor(two_shards)
+    lz4_torch.reset_launches()
+    got = two.compress(data)
+    # 86 blocks of 64 KiB, 16 a shard: 6 shards in 3 steps, the last short
+    assert lz4_torch.LAUNCHES["lz4_tokenize"] == 6
+    assert got == one.compress(data)
+    cut = data[: 1 << 20]
+    for entropy in (True, False):
+        assert two.compress_zstd(cut, 3, device_entropy=entropy) == \
+            one.compress_zstd(cut, 3, device_entropy=entropy)
+    blob = train_dictionary([cut[i:i + 512] for i in range(0, 8192, 512)], 2048)
+    got = DeviceCompressor(two_shards, block_size=8192).compress_zstd(cut[:300000], 3, dictionary=blob)
+    assert got == DeviceCompressor(cuda, block_size=8192).compress_zstd(cut[:300000], 3,
+                                                                        dictionary=blob)
+    assert zframe.decompress(got, dictionary=blob) == cut[:300000]
+
+
+@pytest.mark.parametrize("name", list(huffman_encode_cases.cases()))
+def test_sharded_huffman_encode_on_cuda(two_shards, name):
+    case = huffman_encode_cases.cases()[name]
+    got = getattr(huffman_torch.TorchHuffmanEncoder(two_shards), case.method)(case.items, case.tables)
+    assert got == huffman_encode_cases.host_payloads(case)
+
+
+@pytest.mark.parametrize("name", list(fse_encode_cases.cases()))
+def test_sharded_fse_encode_on_cuda(two_shards, name):
+    case = fse_encode_cases.cases()[name]
+    assert fse_torch.TorchSequenceEncoder(two_shards).encode_batch(case.blocks, case.tables) == [
+        zseq.encode_sequences(*b, *t) for b, t in zip(case.blocks, case.tables)]
+
+
+@pytest.mark.parametrize("name", list(huffman_cases.cases()))
+def test_sharded_huffman_decode_on_cuda(two_shards, name):
+    case = huffman_cases.cases()[name]
+    n_out = case.batch["n_out"]
+    syms, final = huffman_torch.TorchHuffmanDecoder(two_shards).decode_built(case.batch, n_out)
+    want, want_final = huffman_torch.TorchHuffmanDecoder("cpu").decode_built(case.batch, n_out)
+    assert torch.equal(syms.cpu(), want) and np.array_equal(final, want_final)
+
+
+@pytest.mark.parametrize("name", list(fse_cases.cases()))
+def test_sharded_fse_decode_on_cuda(two_shards, name):
+    items = fse_cases.cases()[name].items
+
+    def run(dev):
+        try:
+            (lls, mls, ovs), seq_off = fse_torch.TorchSequenceDecoder(dev).decode_batch_device(items)
+            return [t.cpu().tolist() for t in (lls, mls, ovs)], seq_off.tolist()
+        except DecompressError as e:
+            return str(e)
+
+    assert run(two_shards) == run("cpu")
+
+
+def test_mesh_extract_on_two_shards(cuda, two_shards):
+    rng = np.random.default_rng(53)
+    data = _text(2 << 20, 54) + rng.integers(0, 256, 100000, dtype=np.uint8).tobytes()
+    comp = native.zstd_compress(data, 3)
+    assert extract.decompress_zstd_device(comp, len(data), device=cuda, mesh=two_shards) == data
+    for p in np.linspace(8, len(comp) - 1, 6).astype(int).tolist():
+        bad = bytearray(comp)
+        bad[p] ^= 0x5A
+        outcome = []
+        for mesh in (None, two_shards):
+            try:
+                outcome.append(extract.decompress_zstd_device(bytes(bad), len(data), device=cuda,
+                                                              mesh=mesh))
+            except DecompressError as e:
+                outcome.append(str(e))
+        assert outcome[0] == outcome[1], p
+
+
+def test_dryrun_multichip_on_two_shards_of_one_card(cuda, monkeypatch):
+    from zpack_tpu_torch.parallel import multichip
+
+    monkeypatch.setattr(DeviceCompressor, "BYTES_PER_STEP", 1 << 20)
+    multichip.dryrun_multichip(2, ["cuda:0", "cuda:0"])

@@ -1,7 +1,8 @@
 """The port's own host layers against the JAX package's, exact.
 
 The port keeps copies of the JAX-free host modules (format, reader, writer,
-stream, codecs, native loader, CLI).  The same seeded inputs go through both
+stream, codecs, native loader, CLI, the checkpointed compressor, whose
+source is a byte-for-byte copy).  The same seeded inputs go through both
 packages: hashes, blocks, frames, dictionaries, archives, error classes and
 messages, and CLI output must be identical.  Each case runs on the native
 C++ engine and, with both packages' ``native.get_lib`` answering None, on the
@@ -9,6 +10,7 @@ pure-python engines."""
 
 import contextlib
 import io
+import pathlib
 
 import numpy as np
 import pytest
@@ -22,13 +24,13 @@ from zpack_tpu.cli import main as j_cli
 from zpack_tpu.codecs import xxh3 as j_xxh3
 from zpack_tpu.codecs.lz4 import block as j_block, frame as j_lz4f
 from zpack_tpu.codecs.zstd import dict as j_dict, encode as j_enc, frame as j_zf
-from zpack_tpu.parallel import host as j_host
+from zpack_tpu.parallel import checkpoint as j_checkpoint, host as j_host
 from zpack_tpu_torch import codecs as p_codecs, engine as p_engine, native as p_native
 from zpack_tpu_torch.cli import main as p_cli
 from zpack_tpu_torch.codecs import xxh3 as p_xxh3
 from zpack_tpu_torch.codecs.lz4 import block as p_block, frame as p_lz4f
 from zpack_tpu_torch.codecs.zstd import dict as p_dict, encode as p_enc, frame as p_zf
-from zpack_tpu_torch.parallel import host as p_host
+from zpack_tpu_torch.parallel import checkpoint as p_checkpoint, host as p_host
 
 torch.set_num_threads(1)
 
@@ -160,6 +162,25 @@ def test_parallel_host_frames(host_engine):
         assert got == getattr(j_host, fn)(data, 1, chunk=1 << 20)
     comp = j_native.zstd_compress(data, 3) or j_enc.compress(data[:100000], 3)
     assert p_host._scan_zstd_frames(comp) == j_host._scan_zstd_frames(comp)
+
+
+def test_checkpoint_module_is_a_byte_for_byte_copy():
+    assert pathlib.Path(p_checkpoint.__file__).read_bytes() == \
+        pathlib.Path(j_checkpoint.__file__).read_bytes()
+
+
+@pytest.mark.parametrize("method", ["lz4", "zstd"])
+def test_checkpointed_compressor(host_engine, tmp_path, method):
+    """The copy on the host engines (no device route), with a crash and a
+    resume: the same stream as the JAX package's."""
+    data = _mix(300000, seed=81)
+    got = p_checkpoint.CheckpointedCompressor(tmp_path / "p.spool", method=method,
+                                              chunk_size=64 << 10)
+    with pytest.raises(RuntimeError):
+        got.compress(data, fail_after=2)
+    want = j_checkpoint.CheckpointedCompressor(tmp_path / "j.spool", method=method,
+                                               chunk_size=64 << 10)
+    assert got.compress(data) == want.compress(data)
 
 
 def _entries(pkg):

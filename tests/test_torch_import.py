@@ -88,6 +88,20 @@ for B in (4096, 8192, 65536):
     assert LF.decompress_frame(dc.compress(data)) == data
     if B <= 8192:
         assert ZF.decompress(dc.compress_zstd(data, 3, dictionary=blob), dictionary=blob) == data
+mesh = pipeline.make_mesh(["cpu", "cpu"])
+dc2 = pipeline.DeviceCompressor(mesh, block_size=4096)
+assert dc2.compress(data) == pipeline.DeviceCompressor("cpu", block_size=4096).compress(data)
+from zpack_tpu_torch.parallel import archive
+engine.install("cpu")
+aw = Z.Writer.to_heap()
+aw.write_header()
+aw.write_data_header()
+archive.write_archive_parallel(aw, [("a.bin", data), ("e", b"")], mesh, block_size=4096)
+aw.write_cdr()
+aw.write_eocdr()
+ar = Z.Reader.from_memory(aw.buffer)
+assert ar.read_file("a.bin") == data and ar.read_file("e") == b""
+engine.uninstall()
 forward, (sample,) = lz4_torch.entry("cpu")
 assert forward(sample)[0].shape == (16384,)
 

@@ -46,6 +46,7 @@ import torch
 
 from ..codecs.zstd import seq as zseq
 from ..errors import DecompressError
+from ..parallel.mesh import as_mesh, row_ranges
 
 from . import _build
 from .huffman_torch import scatter_bits
@@ -305,10 +306,16 @@ class TorchSequenceEncoder:
     """Host wrapper: pack per-block sequences and their chosen FSE encode
     tables into one flat batch, encode it on ``device`` in one launch, cut
     the byte payloads (each identical to ``seq.encode_sequences``).  The
-    device analog of ``fse_jax.DeviceSequenceEncoder``."""
+    device analog of ``fse_jax.DeviceSequenceEncoder``.
+
+    ``device`` may be a ``DeviceMesh``: the blocks split into contiguous
+    ranges, one a mesh device, each encoded in one launch on its device
+    with the whole table rows (its range a view of them), and the words of
+    the ranges, back to back in block order, make the batch's plane."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.mesh = as_mesh(device)
+        self.device = self.mesh.devices[0]
 
     def encode_batch(self, blocks: list[tuple], tables: list[tuple]) -> list[bytes]:
         """blocks[i] = (lls, mls, ovs) int arrays (non-empty); tables[i] =
@@ -317,13 +324,21 @@ class TorchSequenceEncoder:
         if not blocks:
             return []
         batch = build_batch(blocks, tables)
-        words, total = encode_seq_streams(
-            *(torch.from_numpy(batch[k]).to(self.device) for k in BATCH_ARGS),
-            n_words=batch["n_words"])
-        total = total.cpu().numpy()
-        plane = words.cpu().numpy().tobytes()
-        off = batch["word_off"]
-        return [plane[4 * int(off[i]): 4 * int(off[i]) + (int(total[i]) + 8) // 8]
+        seq_off, word_off = batch["seq_off"], batch["word_off"]
+        tabs = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
+        launched = []
+        for (lo, hi), dev in zip(row_ranges(len(blocks), self.mesh.size), self.mesh.devices):
+            if lo == hi:
+                continue
+            launched.append(encode_seq_streams(
+                torch.from_numpy(batch["fields"][seq_off[lo]:seq_off[hi]]).to(dev),
+                torch.from_numpy(seq_off[lo:hi + 1] - seq_off[lo]).to(dev), tabs[dev][lo:hi],
+                torch.from_numpy(batch["al"][lo:hi]).to(dev),
+                torch.from_numpy(word_off[lo:hi + 1] - word_off[lo]).to(dev),
+                n_words=int(word_off[hi] - word_off[lo])))
+        total = np.concatenate([t.cpu().numpy() for _, t in launched])
+        plane = b"".join(w.cpu().numpy().tobytes() for w, _ in launched)
+        return [plane[4 * int(word_off[i]): 4 * int(word_off[i]) + (int(total[i]) + 8) // 8]
                 for i in range(len(blocks))]
 
 
@@ -566,10 +581,18 @@ class TorchSequenceDecoder:
     bitstreams and their tables, decodes them on ``device`` in one launch
     and checks that each stream was consumed exactly.  The device analog of
     ``fse_jax.DeviceSequenceDecoder``, bit-exact vs
-    ``seq.decode_sequences``."""
+    ``seq.decode_sequences``.
+
+    ``device`` may be a ``DeviceMesh``: the items split into contiguous
+    ranges, one a mesh device, each decoded in one launch on its device
+    with the whole table rows (its range a view of them); the values
+    gather on the first mesh device in item order, and the flags of every
+    shard are checked in item order, so an error names the same first bad
+    item whatever the shard count."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.mesh = as_mesh(device)
+        self.device = self.mesh.devices[0]
 
     def decode_batch_device(self, items: list[tuple]):
         """items[i] = (bitstream bytes, ll_table, of_table, ml_table,
@@ -580,17 +603,33 @@ class TorchSequenceDecoder:
         ``DeviceSequenceDecoder``, for an offset code above 30 and a stream
         not consumed exactly."""
         batch = build_decode_batch(items)
-        lls, mls, ovs, pos_f, err = decode_seq_streams(
-            *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS))
-        flags = torch.cat([pos_f, err.to(torch.int32)]).cpu().numpy()  # one copy
-        pos_f, err = flags[:len(items)], flags[len(items):]
+        rows, seq_off = batch["rows"], batch["seq_off"]
+        tabs = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
+        launched = []
+        for (lo, hi), dev in zip(row_ranges(len(items), self.mesh.size), self.mesh.devices):
+            if lo == hi:
+                continue
+            part = rows[lo:hi].copy()
+            p0, p1 = part[0, 0], part[-1, 0] + part[-1, 1]
+            part[:, 0] -= p0
+            launched.append(decode_seq_streams(
+                torch.from_numpy(batch["payload"][p0:p1]).to(dev), torch.from_numpy(part).to(dev),
+                torch.from_numpy(seq_off[lo:hi + 1] - seq_off[lo]).to(dev),
+                torch.from_numpy(batch["al"][lo:hi]).to(dev), tabs[dev][lo:hi]))
+        # one copy a shard
+        flags = [torch.cat([f[3], f[4].to(torch.int32)]).cpu().numpy() for f in launched]
+        pos_f = np.concatenate([f[:len(f) // 2] for f in flags])
+        err = np.concatenate([f[len(f) // 2:] for f in flags])
         if err.any():
             raise DecompressError("offset code out of device range")
         for i, it in enumerate(items):
             if it[4] and pos_f[i] != 0:
                 raise DecompressError("sequence bitstream not fully consumed"
                                       if pos_f[i] > 0 else "sequence bitstream over-read")
-        return (lls, mls, ovs), batch["seq_off"]
+        if len(launched) == 1:
+            return launched[0][:3], seq_off
+        return tuple(torch.cat([f[c].to(self.device) for f in launched])
+                     for c in range(3)), seq_off
 
     def decode_batch(self, items: list[tuple]) -> tuple:
         """Returns (lls, mls, ovs), each a list of np arrays (raw offset

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..errors import CompressError, DecompressError
+from ..parallel.mesh import as_mesh, row_ranges
 
 from . import _build
 
@@ -240,22 +241,40 @@ class TorchHuffmanEncoder:
     ``device`` in one launch, cut the payloads (each identical to
     ``huffman._encode_stream``).  The device analog of
     ``huffman_jax.DeviceHuffmanEncoder``; ``encode_literal_sections``
-    takes either."""
+    takes either.
+
+    ``device`` may be a ``DeviceMesh`` (the JAX ``shard_rows``): the
+    batch's rows split into contiguous ranges, one a mesh device, each
+    range encoded in one launch on its device with the whole table array,
+    and the words of the ranges, back to back in row order, make the
+    batch's plane."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.mesh = as_mesh(device)
+        self.device = self.mesh.devices[0]
 
     def _payloads(self, batch: dict) -> tuple[bytes, list, list]:
         """Encode ``batch``; returns the plane's bytes, and each row's first
         byte in them and its payload's bytes."""
-        words, total = encode_streams(
-            *(torch.from_numpy(batch[k]).to(self.device) for k in BATCH_ARGS),
-            n_words=batch["n_words"])
         rows = batch["rows"]
-        if not np.array_equal(total.cpu().numpy(), rows[:, 3]):
+        tables = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
+        launched = []
+        for (lo, hi), dev in zip(row_ranges(len(rows), self.mesh.size), self.mesh.devices):
+            if lo == hi:
+                continue
+            part = rows[lo:hi].copy()
+            s0, w0 = part[0, 0], part[0, 4]
+            s1, w1 = part[-1, 0] + part[-1, 1], part[-1, 4] + part[-1, 3] // 32 + 1
+            part[:, 0] -= s0
+            part[:, 4] -= w0
+            launched.append(encode_streams(
+                torch.from_numpy(batch["syms"][s0:s1]).to(dev), torch.from_numpy(part).to(dev),
+                tables[dev], n_words=int(w1 - w0)))
+        total = np.concatenate([t.cpu().numpy() for _, t in launched])
+        if not np.array_equal(total, rows[:, 3]):
             raise RuntimeError("huffman_encode: total_bits disagree with the host's count")
-        return (words.cpu().numpy().tobytes(), (4 * rows[:, 4]).tolist(),
-                ((rows[:, 3] + 8) // 8).tolist())
+        return (b"".join(w.cpu().numpy().tobytes() for w, _ in launched),
+                (4 * rows[:, 4]).tolist(), ((rows[:, 3] + 8) // 8).tolist())
 
     def encode_batch(self, streams: list[np.ndarray], tables) -> list[bytes]:
         """streams[i]: uint8 symbol array; tables[i]: HuffEncodeTable for
@@ -478,10 +497,18 @@ class TorchHuffmanDecoder:
     """Host wrapper: pack backward Huffman streams into one flat batch,
     decode it on ``device`` in one launch.  The device analog of
     ``huffman_jax.DeviceHuffmanDecoder``, bit-exact vs
-    ``huffman._decode_one_stream``."""
+    ``huffman._decode_one_stream``.
+
+    ``device`` may be a ``DeviceMesh``: the rows split into contiguous
+    ranges, one a mesh device, each decoded in one launch on its device
+    with the whole table array, its streams written back to back into a
+    buffer of its own; the first mesh device gathers every shard's symbols
+    into the output, each stream at its ``dst_off``, so no shard writes
+    another's destinations."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.mesh = as_mesh(device)
+        self.device = self.mesh.devices[0]
 
     def decode_batch_device(self, payloads: list[bytes], tables, n_symbols: list[int],
                             dst_off: list[int] | None = None, n_out: int | None = None):
@@ -491,10 +518,53 @@ class TorchHuffmanDecoder:
         stream without it), and ``final`` (S,) np.int32, which must be 0
         for every valid stream."""
         batch = build_decode_batch(payloads, tables, n_symbols, dst_off)
-        syms, final = decode_streams(
-            *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS),
-            n_out=batch["n_out"] if n_out is None else n_out, widest=batch["widest"])
-        return syms, final.cpu().numpy()
+        return self.decode_built(batch, batch["n_out"] if n_out is None else n_out)
+
+    def decode_built(self, batch: dict, n_out: int):
+        """:meth:`decode_batch_device` on a batch of
+        :func:`build_decode_batch` (its rows as they stand, malformed ones
+        included)."""
+        if self.mesh.size == 1:
+            syms, final = decode_streams(
+                *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS),
+                n_out=n_out, widest=batch["widest"])
+            return syms, final.cpu().numpy()
+        rows, payload = batch["rows"], batch["payload"]
+        bad = malformed(torch.from_numpy(rows), len(payload), len(batch["tables"])).numpy()
+        # a shard's rows: bytes rebased to its part of the payload, symbols
+        # back to back from 0; a malformed row keeps its verdict (an
+        # invalid table) and writes nothing
+        n = np.where(bad, 0, np.maximum(rows[:, 3], 0))
+        tables = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
+        launched = []
+        for (lo, hi), dev in zip(row_ranges(len(rows), self.mesh.size), self.mesh.devices):
+            if lo == hi:
+                continue
+            part, ok = rows[lo:hi].copy(), ~bad[lo:hi]
+            p0 = int(part[ok, 0].min()) if ok.any() else 0
+            p1 = int((part[ok, 0] + part[ok, 1]).max()) if ok.any() else 0
+            part[:, 0] -= p0
+            part[:, 3] = n[lo:hi]
+            part[:, 4] = np.cumsum(n[lo:hi]) - n[lo:hi]
+            part[~ok, 5] = -1
+            out, final = decode_streams(
+                torch.from_numpy(payload[p0:p1]).to(dev), torch.from_numpy(part).to(dev),
+                tables[dev], n_out=int(n[lo:hi].sum()),
+                widest=int(part[ok, 1].max(initial=0)))
+            launched.append((lo, hi, out, final))
+        dev0 = self.device
+        syms = torch.zeros(n_out, dtype=torch.uint8, device=dev0)
+        for lo, hi, out, _ in launched:
+            # each symbol's place in the output; those outside it are skipped
+            # as the single-device decode skips them
+            k = n[lo:hi]
+            shift = torch.from_numpy(rows[lo:hi, 4] - (np.cumsum(k) - k)).to(dev0)
+            dst = torch.repeat_interleave(shift, torch.from_numpy(k).to(dev0),
+                                          output_size=out.numel()) \
+                + torch.arange(out.numel(), device=dev0)
+            keep = (dst >= 0) & (dst < n_out)
+            syms[dst[keep]] = out.to(dev0)[keep]
+        return syms, np.concatenate([f.cpu().numpy() for _, _, _, f in launched])
 
     def decode_batch(self, payloads: list[bytes], tables, n_symbols: list[int]) -> list[np.ndarray]:
         """payloads[i]: one backward-read huffman stream; tables[i]:

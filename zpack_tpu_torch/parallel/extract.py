@@ -328,7 +328,8 @@ def _scatter_flat(dst: torch.Tensor, parts: list[tuple]) -> None:
     dst[idx] = flat.to(dev)
 
 
-def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device) -> bytes:
+def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
+                           mesh=None) -> bytes:
     """Decompress concatenated zstd frames with all entropy decoding and
     sequence execution on ``device`` (``extract.decompress_zstd_device``):
 
@@ -344,10 +345,15 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device) -
     6. one replay row per frame (``lz4_torch.replay``), then the content
        checksums on the host.
 
+    With ``mesh`` (a ``DeviceMesh``) the Huffman and FSE decode batches of
+    steps 2 and 3 shard over its devices, as the JAX function's do over its
+    mesh; steps 4 to 6 run on ``device``.
+
     Raises DecompressError, with the messages of the JAX function, on
     malformed input; the codec then falls back (dictionaries, offset codes
     above 30)."""
     dev = torch.device(device)
+    shards = dev if mesh is None else mesh
     with metrics.phase("torch.zstd_walk", len(data)):
         w = walk_zstd(data)
         LB, stream_dst, raw_parts = _literal_layout(w)
@@ -355,10 +361,11 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device) -
 
     with metrics.phase("torch.huffman_decode", sum(w.n_syms)):
         if w.streams:
-            lit_flat, final = TorchHuffmanDecoder(dev).decode_batch_device(
+            lit_flat, final = TorchHuffmanDecoder(shards).decode_batch_device(
                 w.streams, w.tables, w.n_syms, stream_dst, n_out=F * LB)
             if (final != 0).any():
                 raise DecompressError("huffman stream not fully consumed")
+            lit_flat = lit_flat.to(dev)
         else:
             lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
         _scatter_flat(lit_flat, raw_parts)
@@ -366,8 +373,8 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device) -
     B = len(w.seq_items)
     if B:
         with metrics.phase("torch.fse_decode", sum(it[4] for it in w.seq_items)):
-            (ll_d, ml_d, ov_d), seq_off = fse_torch.TorchSequenceDecoder(dev).decode_batch_device(
-                w.seq_items)
+            flat, seq_off = fse_torch.TorchSequenceDecoder(shards).decode_batch_device(w.seq_items)
+            ll_d, ml_d, ov_d = (t.to(dev) for t in flat)
         with metrics.phase("torch.rep_resolve", int(seq_off[-1])):
             seq_off_d = torch.from_numpy(seq_off).to(dev)
             tot_sel, tot_val, sums = (t.cpu().numpy() for t in

@@ -1,24 +1,30 @@
-"""Single-device compression pipeline: LZ4 frames and zstd frames.
+"""Compression pipeline on a device mesh: LZ4 frames and zstd frames.
 
-Counterpart of ``zpack_tpu/parallel/pipeline.py`` (``MeshCompressor``) on
-one device with no mesh: the input is padded into ``block_size`` blocks,
-each step of blocks goes through the tokenizer kernel, and its wire format
-comes back to the host with the step's size estimate.  The wire format
+Counterpart of ``zpack_tpu/parallel/pipeline.py`` (``make_mesh``,
+``MeshCompressor``).  The input is padded into ``block_size`` blocks; a
+step holds ``blocks_per_step`` blocks a mesh device, cut into contiguous
+shards of blocks, one a device in the order of ``P("entry", "block")``
+(the JAX ``shard_map`` step).  Each shard goes through the tokenizer kernel
+on its device, and its wire format comes back to the host with the shard's
+size estimate; the host sums the estimates (the JAX step's ``psum``).  No
+padding row is launched: the last shard is shorter.  The wire format
 mirrors ``_step_fn``: "u16" (one uint16 per byte) when the window, the
 dictionary plus the block, is 8 KiB or less, else "pair".
 
 * ``compress``: the native serializer writes independent-block lz4f frames
   from it.  On a GPU the steps overlap: step s+1 is copied in and tokenized
-  while the host serializes step s (pinned buffers, one event per step).
+  while the host serializes step s (pinned buffers, one event a shard).
 * ``compress_zstd``: one zstd block per device block; the host parses the
   match tables into sequences, the Huffman literal streams and the FSE
-  sequence streams of all blocks are encoded in one launch each
-  (``kernels/huffman_torch.py``, ``kernels/fse_torch.py``), the host
+  sequence streams of all blocks are encoded in one launch a mesh device
+  each (``kernels/huffman_torch.py``, ``kernels/fse_torch.py``), the host
   assembles the frame.  With a shared dictionary the dictionary is copied
-  to the device once, rides the match window of every block, and each block
-  becomes a frame of its own that references it, encoded on the host.
+  once to each distinct mesh device, rides the match window of every
+  block, and each block becomes a frame of its own that references it,
+  encoded on the host.
 
-Both frames are byte-identical to the JAX engine's, whatever the step size.
+Both frames are byte-identical to the JAX engine's, whatever the step size
+and the mesh.
 """
 
 from __future__ import annotations
@@ -37,26 +43,31 @@ from ..codecs.zstd.dict import as_dictionary
 from ..utils.observe import metrics
 
 from ..kernels import fse_torch, huffman_torch, lz4_torch
+from .mesh import DeviceMesh, as_mesh, make_mesh  # noqa: F401  (re-exported, as in the JAX module)
 
 #: default block: 64 KiB, like the JAX engine and the native lz4f path
 BLOCK = 64 << 10
 
 
 class DeviceCompressor:
-    """Block-parallel LZ4 compressor on one torch device.
+    """Block-parallel LZ4 compressor on a torch device or a device mesh.
 
     ``compress(data)`` returns an lz4f frame of independent blocks, the same
     bytes as ``MeshCompressor(...).compress(data)`` at the same level and
-    block size."""
+    block size, whatever the mesh."""
 
-    #: bytes tokenized per step: 256 blocks of 64 KiB, about two waves of
-    #: one CTA per block on a 132-SM card
+    #: bytes tokenized a step on each mesh device: 256 blocks of 64 KiB,
+    #: about two waves of one CTA per block on a 132-SM card
     BYTES_PER_STEP = 16 << 20
 
     def __init__(self, device, level: int = 1, block_size: int = BLOCK):
+        """``device``: a torch device (a mesh of one) or a
+        :class:`DeviceMesh`; results gather on its first device,
+        ``self.device``."""
         if not 1 <= block_size <= 65536:
             raise ValueError(f"block size {block_size} outside 1..65536")
-        self.device = torch.device(device)
+        self.mesh = as_mesh(device)
+        self.device = self.mesh.devices[0]
         self.level = level
         self.block_size = block_size
         self.depth = 2 if level <= 2 else 8
@@ -74,16 +85,17 @@ class DeviceCompressor:
             f"dict window {window} too large for the device tokenizer "
             f"(dict + block_size must be <= 65536)")
 
-    def _launch(self, chunk: np.ndarray, mode: str, dict_dev: torch.Tensor | None):
-        """Enqueue one step: copy in, build the windows (the dictionary
-        first), tokenize, copy the wire format of the data positions and the
-        step's estimate out.  Returns the host tensors, the estimate last,
-        and the event that marks them ready (None on the CPU, where the step
-        ran synchronously)."""
+    def _launch(self, chunk: np.ndarray, mode: str, device: torch.device,
+                dict_dev: torch.Tensor | None):
+        """Enqueue one shard on ``device``: copy in, build the windows (the
+        dictionary first), tokenize, copy the wire format of the data
+        positions and the shard's estimate out.  Returns the host tensors,
+        the estimate last, and the event that marks them ready (None on the
+        CPU, where the shard ran synchronously)."""
         blocks = torch.from_numpy(chunk)
-        cuda = self.device.type == "cuda"
-        blocks = (blocks.pin_memory().to(self.device, non_blocking=True) if cuda
-                  else blocks.to(self.device))
+        cuda = device.type == "cuda"
+        blocks = (blocks.pin_memory().to(device, non_blocking=True) if cuda
+                  else blocks.to(device))
         dict_pad = 0
         if dict_dev is not None:
             dict_pad = dict_dev.numel()
@@ -96,39 +108,47 @@ class DeviceCompressor:
         for h, t in zip(host, (*arrays, est)):
             h.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        done.record(torch.cuda.current_stream(device))
         return host, done
 
     def _steps_raw(self, data: bytes, dictionary: bytes | None = None):
-        """Yield (first_block, mode, wire arrays, est) per step, in order,
-        with step s+1 enqueued before step s is handed to the caller.  The
-        wire arrays are ``(src u16, code u8)`` in "pair" mode and ``(tok
-        u16,)`` in "u16" mode, each (blocks of the step, B).  ``dictionary``
-        is copied to the device once."""
+        """Yield (first_block, mode, wire arrays, est) a shard, in block
+        order, with step s+1's shards enqueued before step s's are handed to
+        the caller.  The wire arrays are ``(src u16, code u8)`` in "pair"
+        mode and ``(tok u16,)`` in "u16" mode, each (blocks of the shard,
+        B).  ``dictionary`` is copied once to each distinct mesh device."""
         B = self.block_size
         n = len(data)
         nb = max(1, math.ceil(n / B))
         flat = np.frombuffer(data, dtype=np.uint8)
         mode = self._mode(len(dictionary) if dictionary else 0)
-        dict_dev = None
+        dict_dev = dict.fromkeys(self.mesh.distinct())
         if dictionary:
-            dict_dev = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8).to(self.device)
-        pending = None
-        for lo in range(0, nb, self.blocks_per_step):
-            hi = min(nb, lo + self.blocks_per_step)
-            chunk = np.zeros((hi - lo, B), dtype=np.uint8)
-            seg = flat[lo * B : min(n, hi * B)]
-            chunk.reshape(-1)[: len(seg)] = seg
-            with metrics.phase("torch.dispatch", len(seg)):
-                launched = (lo, mode, self._launch(chunk, mode, dict_dev))
-            if pending is not None:
-                yield self._wait(pending)
+            content = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8)
+            dict_dev = {d: content.to(d) for d in dict_dev}
+        bps = self.blocks_per_step
+        pending: list = []
+        for step in range(0, nb, bps * self.mesh.size):
+            launched = []
+            for k, dev in enumerate(self.mesh.devices):
+                lo = step + k * bps
+                hi = min(nb, lo + bps)
+                if lo >= hi:
+                    break
+                chunk = np.zeros((hi - lo, B), dtype=np.uint8)
+                seg = flat[lo * B : min(n, hi * B)]
+                chunk.reshape(-1)[: len(seg)] = seg
+                with metrics.phase("torch.dispatch", len(seg)):
+                    launched.append((lo, mode, self._launch(chunk, mode, dev, dict_dev[dev])))
+            for p in pending:
+                yield self._wait(p)
             pending = launched
-        yield self._wait(pending)
+        for p in pending:
+            yield self._wait(p)
 
     @staticmethod
     def _wait(pending):
-        """Wait for a step launched by :meth:`_launch`; its host arrays and
+        """Wait for a shard launched by :meth:`_launch`; its host arrays and
         its estimate."""
         lo, mode, (host, done) = pending
         with metrics.phase("torch.d2h", host[0].numel()):
@@ -162,8 +182,8 @@ class DeviceCompressor:
         """``(src, mlen, nb, est_total)``: the position-ordered int32 match
         tables of the ``nb`` blocks, ``(nb, B)`` each (``src`` -1 where there
         is no match; with ``dictionary``, relative to the start of the
-        window, the dictionary's first byte), and the sum of the steps' size
-        estimates.  The tables of ``MeshCompressor.tokenize`` without its
+        window, the dictionary's first byte), and the host sum of the
+        shards' size estimates.  The tables of ``MeshCompressor.tokenize`` without its
         mesh padding rows, which its ``est_total`` counts and this one does
         not (``lz4_torch.est_plain``)."""
         data = bytes(data)
@@ -190,7 +210,8 @@ class DeviceCompressor:
         ``level`` here reaches only the empty input's frame.  With
         ``device_entropy`` (default: on unless ``ZPACK_TPU_NO_DEVICE_ENTROPY``
         is set) the literal Huffman streams and the FSE sequence streams of
-        all blocks are encoded on ``self.device``; without it, by the host
+        all blocks are encoded on the mesh, their rows sharded over its
+        devices; without it, by the host
         encoders of ``codecs.zstd``.
 
         With ``dictionary`` (a ``ZstdDictionary``, a dictionary blob or raw
@@ -344,15 +365,15 @@ class DeviceCompressor:
         return bytes(out)
 
     def _device_huffman(self) -> huffman_torch.TorchHuffmanEncoder:
-        """Cached Huffman literal-stream encoder on ``self.device``."""
+        """Cached Huffman literal-stream encoder on the mesh."""
         enc = getattr(self, "_huff_enc", None)
         if enc is None:
-            enc = self._huff_enc = huffman_torch.TorchHuffmanEncoder(self.device)
+            enc = self._huff_enc = huffman_torch.TorchHuffmanEncoder(self.mesh)
         return enc
 
     def _device_fse(self) -> fse_torch.TorchSequenceEncoder:
-        """Cached FSE sequence-stream encoder on ``self.device``."""
+        """Cached FSE sequence-stream encoder on the mesh."""
         enc = getattr(self, "_fse_enc", None)
         if enc is None:
-            enc = self._fse_enc = fse_torch.TorchSequenceEncoder(self.device)
+            enc = self._fse_enc = fse_torch.TorchSequenceEncoder(self.mesh)
         return enc

@@ -1,0 +1,276 @@
+"""The port's phase registry (``zpack_tpu_torch.utils.observe``): parents and
+self time, threads, reset, the profiler ranges of ``observe.trace``, a
+wrapper set on the instance as a benchmark sets it, and the spans of a CPU
+round trip with the engine installed."""
+
+import ast
+import contextlib
+import json
+import pathlib
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import zpack_tpu_torch as zp
+from zpack_tpu_torch import codecs, engine
+from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
+from zpack_tpu_torch.parallel.extract import decompress_lz4f_batched
+from zpack_tpu_torch.utils import observe
+from zpack_tpu_torch.utils.observe import Metrics, metrics
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(zp.__file__).resolve().parent
+OLD_KEYS = {"calls", "seconds", "bytes", "MBps"}
+
+
+def test_nested_phases_record_parents_and_self_time():
+    m = Metrics()
+    with m.phase("outer", 100):
+        time.sleep(0.01)
+        for _ in range(2):
+            with m.phase("inner", 10):
+                time.sleep(0.005)
+                with m.phase("leaf"):
+                    pass
+    s = m.snapshot()
+    assert s["outer"]["parents"] == {"": 1}
+    assert s["inner"]["parents"] == {"outer": 2}
+    assert s["leaf"]["parents"] == {"inner": 2}
+    assert s["outer"]["self_seconds"] == pytest.approx(
+        s["outer"]["seconds"] - s["inner"]["seconds"], abs=1e-5)
+    assert s["inner"]["self_seconds"] == pytest.approx(
+        s["inner"]["seconds"] - s["leaf"]["seconds"], abs=1e-5)
+    assert s["outer"]["self_seconds"] >= 0.009
+    assert s["leaf"]["self_seconds"] == pytest.approx(s["leaf"]["seconds"], abs=1e-6)
+    # the old keys keep their meaning
+    assert s["inner"]["calls"] == 2 and s["inner"]["bytes"] == 20
+    assert s["outer"]["MBps"] == round(100 / s["outer"]["seconds"] / 1e6, 2)
+    assert set(s["outer"]) == OLD_KEYS | {"self_seconds", "parents"}
+
+
+def test_phase_closed_out_of_order_leaves_the_stack_sound():
+    """A generator may close its phase after the caller opened another."""
+    m = Metrics()
+
+    def gen():
+        with m.phase("gen"):
+            yield
+
+    g = gen()
+    next(g)
+    with m.phase("caller"):
+        g.close()
+    with m.phase("after"):
+        pass
+    s = m.snapshot()
+    assert s["caller"]["parents"] == {"gen": 1}
+    assert s["after"]["parents"] == {"": 1}
+
+
+def test_phase_on_another_thread_has_no_parent():
+    m = Metrics()
+    with m.phase("main"):
+        def work():
+            with m.phase("worker"):
+                pass
+
+        t = threading.Thread(target=work)
+        t.start()
+        t.join()
+    s = m.snapshot()
+    assert s["worker"]["parents"] == {"": 1}
+    assert s["main"]["self_seconds"] == pytest.approx(s["main"]["seconds"], abs=1e-6)
+
+
+def test_reset_clears_everything():
+    m = Metrics()
+    with m.phase("a", 5):
+        with m.phase("b"):
+            pass
+    m.reset()
+    assert m.snapshot() == {}
+    with m.phase("b"):
+        pass
+    assert m.snapshot()["b"]["parents"] == {"": 1} and m.snapshot()["b"]["calls"] == 1
+    assert json.loads(m.report())["b"]["calls"] == 1
+
+
+def test_phase_under_a_bare_profiler_adds_no_range(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with metrics.phase("test.bare"):
+            torch.zeros(4).sum()
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    names = [e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]]
+    assert not [n for n in names if n.startswith("phase:")]
+
+
+def test_trace_ranges_end_with_the_region(tmp_path):
+    with observe.trace(str(tmp_path / "prof")):
+        with metrics.phase("test.inside"):
+            pass
+    assert metrics._ranges is None
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    assert [e["name"] for e in events if e.get("name", "").startswith("phase:")] == \
+        ["phase:test.inside"]
+
+
+# -- the spans of a CPU round trip -------------------------------------------
+
+def _entries():
+    rng = np.random.default_rng(7)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8))
+             for _ in range(300)]
+    text = b" ".join(words[i] for i in rng.integers(0, 300, 200_000))
+    lz4 = zp.CompressOptions(zp.CompressionMethod.LZ4, 1)
+    zstd = zp.CompressOptions(zp.CompressionMethod.ZSTD, 3)
+    # over 1 MiB stored, so the Reader scans the entry for frames in place
+    big = text[:400_000] + rng.integers(0, 256, 1_100_000, dtype=np.uint8).tobytes()
+    return ([("big.bin", big, lz4), ("small.txt", text[:70_000], lz4)],
+            [("z.txt", text[:300_000], zstd)])
+
+
+@pytest.fixture(scope="module")
+def round_trip():
+    """Every span name a CPU round trip opens, counted by a ``(name,
+    nbytes=0)`` wrapper set on the instance as the benchmark sets it, and
+    the registry's snapshot of the same run."""
+    before = codecs.device_setting()
+    seen: dict = {}
+    orig = metrics.phase
+
+    @contextlib.contextmanager
+    def phase(name, nbytes=0):
+        seen[name] = seen.get(name, 0) + 1
+        with orig(name, nbytes):
+            yield
+
+    engine.install("cpu")
+    metrics.reset()
+    metrics.phase = phase
+    try:
+        lz4_files, zstd_files = _entries()
+        w = zp.Writer.to_heap()
+        w.write_archive(lz4_files)
+        r = zp.Reader.from_memory(w.buffer)
+        for name, data, _ in lz4_files:
+            assert r.read_file(name) == data
+        w = zp.Writer.to_heap()
+        w.write_archive(zstd_files)
+        r = zp.Reader.from_memory(w.buffer)
+        for name, data, _ in zstd_files:
+            assert r.read_file(name) == data
+        text = zstd_files[0][1][:200_000]
+        frame = lz4frame.compress_frame(text, 1, block_indep=True, content_checksum=True)
+        assert decompress_lz4f_batched(frame, len(text), device="cpu") == text
+    finally:
+        metrics.__dict__.pop("phase", None)
+        codecs.set_device(before)
+    return seen, metrics.snapshot()
+
+
+def test_popping_the_wrapper_restores_phase(round_trip):
+    assert "phase" not in metrics.__dict__
+    assert metrics.phase.__func__ is Metrics.phase
+
+
+def test_wrapper_on_the_instance_sees_every_span(round_trip):
+    seen, snap = round_trip
+    assert seen == {k: v["calls"] for k, v in snap.items()}
+
+
+PARENTS = {
+    "writer.write_archive": {""},
+    "writer.xxh3": {"writer.write_archive"},
+    "writer.emit": {"writer.write_archive", "writer.records"},
+    "writer.records": {"writer.write_archive"},
+    "writer.buffer": {""},
+    "lz4.compress": {"writer.write_archive"},
+    "zstd.compress": {"writer.write_archive"},
+    "torch.stage": {"lz4.compress"},
+    "torch.dispatch": {"lz4.compress"},
+    "torch.d2h": {"lz4.compress"},
+    "torch.d2h.wait": {"torch.d2h"},
+    "torch.serialize": {"lz4.compress"},
+    "torch.frame": {"lz4.compress"},
+    "reader.open": {""},
+    "reader.read_file": {""},
+    "reader.slice": {"reader.read_file"},
+    "reader.xxh3": {"reader.read_file"},
+    "reader.lz4_scan": {"reader.read_file"},
+    "lz4.decompress": {"reader.read_file"},
+    "torch.lz4f_walk": {"lz4.decompress", ""},
+    "torch.lz4f_join": {"lz4.decompress", ""},
+    "torch.lz4f_checksum": {"torch.lz4f_join"},
+    "zstd.decompress": {"reader.read_file"},
+    "torch.zstd_walk": {"zstd.decompress"},
+    "torch.zstd_walk.literals": {"torch.zstd_walk"},
+    "torch.zstd_walk.sequences": {"torch.zstd_walk"},
+    "torch.zstd_walk.layout": {"torch.zstd_walk"},
+    "torch.huffman_decode": {"zstd.decompress"},
+    "torch.huffman_decode.wait": {"torch.huffman_decode"},
+    "torch.fse_decode": {"zstd.decompress"},
+    "torch.fse_decode.wait": {"torch.fse_decode"},
+    "torch.rep_resolve": {"zstd.decompress"},
+    "torch.rep_resolve.wait": {"torch.rep_resolve"},
+    "torch.zstd_assemble": {"zstd.decompress"},
+    "torch.zstd_assemble.wait": {"torch.zstd_assemble"},
+    "torch.replay": {"zstd.decompress"},
+    "torch.replay.wait": {"torch.replay"},
+    "torch.zstd_checksum": {"zstd.decompress"},
+    "torch.zstd_join": {"zstd.decompress"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENTS))
+def test_span_appears_under_its_parent(round_trip, name):
+    _, snap = round_trip
+    assert name in snap, sorted(snap)
+    assert set(snap[name]["parents"]) <= PARENTS[name]
+    assert snap[name]["calls"] == sum(snap[name]["parents"].values())
+
+
+def test_codec_phases_are_never_nested(round_trip):
+    _, snap = round_trip
+    codec = {"lz4.compress", "zstd.compress", "lz4.decompress", "zstd.decompress"}
+    for name in codec:
+        assert not set(snap[name]["parents"]) & codec
+
+
+def test_self_time_is_the_time_outside_children(round_trip):
+    _, snap = round_trip
+    inner: dict = {}
+    for name, v in snap.items():
+        for parent, calls in v["parents"].items():
+            if parent and calls == v["calls"]:
+                inner[parent] = inner.get(parent, 0.0) + v["seconds"]
+    for parent, secs in inner.items():
+        v = snap[parent]
+        assert v["self_seconds"] <= v["seconds"] - secs + 1e-4
+
+
+# -- the call sites ------------------------------------------------------------
+
+def _phase_lookups(tree):
+    """Every ``metrics.phase`` attribute in ``tree``."""
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr == "phase"
+            and isinstance(n.value, ast.Name) and n.value.id == "metrics"]
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")))
+def test_phase_is_called_with_a_name_and_bytes_only(path):
+    """Every ``metrics.phase`` is looked up at its call and passed
+    ``(name)`` or ``(name, nbytes)``: a wrapper set on the instance sees it."""
+    tree = ast.parse((PKG / path).read_text())
+    calls = {id(n.func): n for n in ast.walk(tree) if isinstance(n, ast.Call)}
+    for node in _phase_lookups(tree):
+        call = calls.get(id(node))
+        assert call is not None, f"{path}:{node.lineno} binds metrics.phase ahead of the call"
+        assert 1 <= len(call.args) <= 2 and all(k.arg == "nbytes" for k in call.keywords), \
+            f"{path}:{call.lineno}"

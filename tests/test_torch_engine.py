@@ -167,13 +167,17 @@ def test_port_cli_refuses_cuda_without_a_gpu(tmp_path, capsys):
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     """``observe.trace`` wraps a region in a ``torch.profiler`` trace and
-    writes it where the caller says."""
+    writes it where the caller says, with each phase of the region as a
+    range ``phase:<name>`` on the trace's clock."""
     import json
 
-    from zpack_tpu_torch.utils.observe import trace
+    from zpack_tpu_torch.utils.observe import metrics, trace
 
     with trace(str(tmp_path / "prof")) as dirname:
-        lz4_torch.tokenize(torch.zeros((2, 256), dtype=torch.uint8))
+        with metrics.phase("test.tokenize", 512):
+            lz4_torch.tokenize(torch.zeros((2, 256), dtype=torch.uint8))
     assert dirname == str(tmp_path / "prof")
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
     assert any("sort" in e.get("name", "") for e in events)
+    ranges = [e for e in events if e.get("name") == "phase:test.tokenize"]
+    assert len(ranges) == 1 and ranges[0]["dur"] > 0

@@ -21,12 +21,14 @@ registry is written.
 from __future__ import annotations
 
 from . import codecs
+from .utils.observe import metrics
 
 
 def install(device="cuda") -> None:
     """Route the archive codecs through ``device`` ("cuda", "cuda:N" or
     "cpu").  Raises RuntimeError for a CUDA device when no GPU is visible."""
-    codecs.set_device(codecs.resolve_device(device))
+    with metrics.phase("engine.install"):
+        codecs.set_device(codecs.resolve_device(device))
 
 
 def uninstall() -> None:

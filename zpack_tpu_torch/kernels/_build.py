@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 import threading
 
+from ..utils.observe import metrics
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -115,7 +117,8 @@ def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            cdll = ctypes.CDLL(str(build()))
+            with metrics.phase("kernels.load"):  # the nvcc build, or the cached library's load
+                cdll = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             cdll.zp_lz4_tokenize.restype = i
             cdll.zp_lz4_tokenize.argtypes = [p, i, i, i, i, i, i, p, p, p, p, p]

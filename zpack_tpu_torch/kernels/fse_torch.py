@@ -47,6 +47,7 @@ import torch
 from ..codecs.zstd import seq as zseq
 from ..errors import DecompressError
 from ..parallel.mesh import as_mesh, row_ranges
+from ..utils.observe import metrics
 
 from . import _build
 from .huffman_torch import scatter_bits
@@ -521,10 +522,11 @@ def decode_seq_streams(payload, rows, seq_off, al, tables):
             raise ValueError(f"{name} must be contiguous on {payload.device}")
     B = rows.shape[0]
     i32, dev = torch.int32, payload.device
-    total, widest, longest = int(seq_off[-1]), 0, 0
-    if B:  # one read-back: the output size, the stage size, the longest chain
-        total, widest, longest = torch.stack(
-            [seq_off[-1], rows[:, 1].max(), (seq_off[1:] - seq_off[:-1]).max()]).tolist()
+    with metrics.phase("torch.fse_decode.wait", 32 if B else 8):
+        total, widest, longest = int(seq_off[-1]), 0, 0
+        if B:  # one read-back: the output size, the stage size, the longest chain
+            total, widest, longest = torch.stack(
+                [seq_off[-1], rows[:, 1].max(), (seq_off[1:] - seq_off[:-1]).max()]).tolist()
     if longest >= 1 << 23 or widest >= 1 << 26:
         raise ValueError("a block of 2**23 sequences or a row of 2**26 bytes is beyond the "
                          "kernel's int32 bit positions")
@@ -604,7 +606,8 @@ class TorchSequenceDecoder:
         not consumed exactly."""
         batch = build_decode_batch(items)
         rows, seq_off = batch["rows"], batch["seq_off"]
-        tabs = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
+        with metrics.phase("torch.fse_decode.wait"):  # a blocking upload
+            tabs = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
         launched = []
         for (lo, hi), dev in zip(row_ranges(len(items), self.mesh.size), self.mesh.devices):
             if lo == hi:
@@ -612,12 +615,16 @@ class TorchSequenceDecoder:
             part = rows[lo:hi].copy()
             p0, p1 = part[0, 0], part[-1, 0] + part[-1, 1]
             part[:, 0] -= p0
-            launched.append(decode_seq_streams(
-                torch.from_numpy(batch["payload"][p0:p1]).to(dev), torch.from_numpy(part).to(dev),
-                torch.from_numpy(seq_off[lo:hi + 1] - seq_off[lo]).to(dev),
-                torch.from_numpy(batch["al"][lo:hi]).to(dev), tabs[dev][lo:hi]))
+            with metrics.phase("torch.fse_decode.wait"):  # blocking uploads
+                args = (torch.from_numpy(batch["payload"][p0:p1]).to(dev),
+                        torch.from_numpy(part).to(dev),
+                        torch.from_numpy(seq_off[lo:hi + 1] - seq_off[lo]).to(dev),
+                        torch.from_numpy(batch["al"][lo:hi]).to(dev))
+            launched.append(decode_seq_streams(*args, tabs[dev][lo:hi]))
         # one copy a shard
-        flags = [torch.cat([f[3], f[4].to(torch.int32)]).cpu().numpy() for f in launched]
+        flags = [torch.cat([f[3], f[4].to(torch.int32)]) for f in launched]
+        with metrics.phase("torch.fse_decode.wait", sum(f.nbytes for f in flags)):
+            flags = [f.cpu().numpy() for f in flags]
         pos_f = np.concatenate([f[:len(f) // 2] for f in flags])
         err = np.concatenate([f[len(f) // 2:] for f in flags])
         if err.any():

@@ -36,6 +36,7 @@ import torch
 
 from ..errors import CompressError, DecompressError
 from ..parallel.mesh import as_mesh, row_ranges
+from ..utils.observe import metrics
 
 from . import _build
 
@@ -525,10 +526,11 @@ class TorchHuffmanDecoder:
         :func:`build_decode_batch` (its rows as they stand, malformed ones
         included)."""
         if self.mesh.size == 1:
-            syms, final = decode_streams(
-                *(torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS),
-                n_out=n_out, widest=batch["widest"])
-            return syms, final.cpu().numpy()
+            with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
+                args = [torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS]
+            syms, final = decode_streams(*args, n_out=n_out, widest=batch["widest"])
+            with metrics.phase("torch.huffman_decode.wait", final.nbytes):
+                return syms, final.cpu().numpy()
         rows, payload = batch["rows"], batch["payload"]
         bad = malformed(torch.from_numpy(rows), len(payload), len(batch["tables"])).numpy()
         # a shard's rows: bytes rebased to its part of the payload, symbols

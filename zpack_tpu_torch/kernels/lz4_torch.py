@@ -694,7 +694,8 @@ def _parse_walk(payload: torch.Tensor, offsets: np.ndarray) -> dict:
     meta[2 * B] = 0
     np.cumsum(bounds[:-1], out=meta[2 * B + 1:3 * B])
     meta[3 * B:] = plan["slots"].ravel()
-    meta = torch.from_numpy(meta).to(dev)
+    with metrics.phase("torch.lz4_parse.wait"):  # a blocking upload
+        meta = torch.from_numpy(meta).to(dev)
     n_slots = max(int(bounds.sum()), 1)
     w = {"rows": meta[:2 * B], "rec_off": meta[2 * B:3 * B], "slots": meta[3 * B:],
          "plan": plan,
@@ -760,7 +761,8 @@ def parse_batch(payload: torch.Tensor, offsets, out_sizes) -> dict:
     if payload.device.type != "cuda" or not payload.is_contiguous():
         raise ValueError("parse_batch takes a contiguous CPU or CUDA tensor")
     w = _parse_walk(payload, offsets)
-    n_seq, lit_total, out_len, err = w["info"].cpu().numpy().T
+    with metrics.phase("torch.lz4_parse.wait", w["info"].nbytes):
+        n_seq, lit_total, out_len, err = w["info"].cpu().numpy().T
     bad = np.flatnonzero(err)
     if bad.size:
         raise DecompressError(PARSE_ERRORS[int(err[bad[0]]) - 1])
@@ -865,7 +867,9 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lz4_replay")
     LAUNCHES["lz4_replay"] += 1
-    if int(state[0]):
+    with metrics.phase("torch.replay.wait", 4):
+        failed = int(state[0])
+    if failed:
         raise RuntimeError("lz4_replay: a copy chain was left unresolved; the sequence "
                            "tables are inconsistent and the output is incomplete")
     return out
@@ -905,7 +909,8 @@ class DeviceLZ4Replayer:
             keep = torch.arange(batch["n_out"], device=self.device) < \
                 batch["out_len"][:len(blocks), None]
             host = torch.empty(int(lens.sum()), dtype=torch.uint8, pin_memory=True)
-            host.copy_(out[:len(blocks)].masked_select(keep))
+            with metrics.phase("torch.lz4_trim.wait", host.nbytes):
+                host.copy_(out[:len(blocks)].masked_select(keep))
             view = host.numpy()
             ends = np.cumsum(lens)
             return [view[e - n:e].tobytes() for e, n in zip(ends.tolist(), lens.tolist())]

@@ -18,6 +18,8 @@ import threading
 
 import numpy as np
 
+from .utils.observe import metrics
+
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
@@ -77,12 +79,13 @@ def get_lib() -> ctypes.CDLL | None:
         _TRIED = True
         if os.environ.get("ZPACK_TPU_NO_NATIVE"):
             return None
-        if not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(str(_SO))
-        except OSError:
-            return None
+        with metrics.phase("native.load"):  # the g++ build, or the cached library's load
+            if not _build():
+                return None
+            try:
+                lib = ctypes.CDLL(str(_SO))
+            except OSError:
+                return None
         lib.zn_xxh3_64.restype = ctypes.c_uint64
         lib.zn_xxh3_64.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
         lib.zn_lz4_compress.restype = ctypes.c_size_t

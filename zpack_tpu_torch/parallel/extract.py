@@ -133,9 +133,10 @@ def decompress_lz4f_batched(data: bytes, max_out: int | None = None, *,
     with metrics.phase("torch.lz4f_join", len(pieces)):
         parts = [p[1] if p[0] == "raw" else decoded[p[1]] for p in pieces]
         for p0, cnt, chk in hash_spans:
-            h = XXH32State(0)
-            for part in parts[p0 : p0 + cnt]:
-                h.update(part)
+            with metrics.phase("torch.lz4f_checksum", sum(map(len, parts[p0:p0 + cnt]))):
+                h = XXH32State(0)
+                for part in parts[p0 : p0 + cnt]:
+                    h.update(part)
             if h.digest() != chk:
                 raise DecompressError("lz4 content checksum mismatch")
         out = b"".join(parts)
@@ -229,7 +230,8 @@ def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
                 if len(payload) < bsize:
                     raise DecompressError("truncated block")
                 pos += bsize
-                plan, lits_end = zframe.parse_literals_section(payload, 0, lit_state)
+                with metrics.phase("torch.zstd_walk.literals", bsize):
+                    plan, lits_end = zframe.parse_literals_section(payload, 0, lit_state)
                 if plan[0] == "done":
                     lits = ("raw", plan[1])
                 else:
@@ -241,7 +243,8 @@ def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
                         n_syms.append(cnt)
                 slot = None
                 if sequences:
-                    nb, bs = fse_torch.parse_headers(payload, lits_end, ftables)
+                    with metrics.phase("torch.zstd_walk.sequences", bsize - lits_end):
+                        nb, bs = fse_torch.parse_headers(payload, lits_end, ftables)
                     if nb:
                         slot = len(seq_items)
                         seq_items.append((bs, ftables.ll, ftables.of, ftables.ml, nb))
@@ -323,9 +326,11 @@ def _scatter_flat(dst: torch.Tensor, parts: list[tuple]) -> None:
     lens = torch.tensor([len(p) for p, _ in parts], dtype=torch.int64)
     shift = torch.tensor([d for _, d in parts], dtype=torch.int64) - (torch.cumsum(lens, 0) - lens)
     flat = torch.frombuffer(bytearray(b"".join(p for p, _ in parts)), dtype=torch.uint8)
-    idx = torch.repeat_interleave(shift.to(dev), lens.to(dev), output_size=len(flat)) \
+    with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
+        shift, lens, flat_d = shift.to(dev), lens.to(dev), flat.to(dev)
+    idx = torch.repeat_interleave(shift, lens, output_size=len(flat)) \
         + torch.arange(len(flat), device=dev)
-    dst[idx] = flat.to(dev)
+    dst[idx] = flat_d
 
 
 def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
@@ -356,7 +361,8 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
     shards = dev if mesh is None else mesh
     with metrics.phase("torch.zstd_walk", len(data)):
         w = walk_zstd(data)
-        LB, stream_dst, raw_parts = _literal_layout(w)
+        with metrics.phase("torch.zstd_walk.layout", len(w.streams)):
+            LB, stream_dst, raw_parts = _literal_layout(w)
     F = len(w.frames)
 
     with metrics.phase("torch.huffman_decode", sum(w.n_syms)):
@@ -376,9 +382,11 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
             flat, seq_off = fse_torch.TorchSequenceDecoder(shards).decode_batch_device(w.seq_items)
             ll_d, ml_d, ov_d = (t.to(dev) for t in flat)
         with metrics.phase("torch.rep_resolve", int(seq_off[-1])):
-            seq_off_d = torch.from_numpy(seq_off).to(dev)
-            tot_sel, tot_val, sums = (t.cpu().numpy() for t in
-                                      fse_torch.rep_totals(ov_d, ll_d, ml_d, seq_off_d))
+            with metrics.phase("torch.rep_resolve.wait"):  # a blocking upload
+                seq_off_d = torch.from_numpy(seq_off).to(dev)
+            totals = fse_torch.rep_totals(ov_d, ll_d, ml_d, seq_off_d)
+            with metrics.phase("torch.rep_resolve.wait", sum(t.nbytes for t in totals)):
+                tot_sel, tot_val, sums = (t.cpu().numpy() for t in totals)
             entry = np.zeros((B, 3), np.int32)
             for _, blocks, _ in w.frames:
                 rep = [1, 4, 8]
@@ -386,8 +394,12 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
                     if b.slot is not None:
                         entry[b.slot] = rep
                         rep = fse_torch.eval_rep_map(tot_sel[b.slot], tot_val[b.slot], rep)
-            offs_d, err = fse_torch.rep_apply(ov_d, ll_d, seq_off_d, torch.from_numpy(entry).to(dev))
-            if err.cpu().numpy().any():
+            with metrics.phase("torch.rep_resolve.wait"):  # a blocking upload
+                entry_d = torch.from_numpy(entry).to(dev)
+            offs_d, err = fse_torch.rep_apply(ov_d, ll_d, seq_off_d, entry_d)
+            with metrics.phase("torch.rep_resolve.wait", err.nbytes):
+                err = err.cpu().numpy()
+            if err.any():
                 raise DecompressError("repeat offset underflow")
         sum_ll, sum_ml = sums[:, 0], sums[:, 1]
 
@@ -431,38 +443,48 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
             if B:
                 frame_of = np.array([j for j, (_, blocks, _) in enumerate(w.frames)
                                      for b in blocks if b.slot is not None], np.int64)
-                shift = torch.from_numpy(frame_of * SB + sq_shift - seq_off[:-1]).to(dev)
-                nsq = torch.from_numpy(np.diff(seq_off)).to(dev)
+                with metrics.phase("torch.zstd_assemble.wait"):  # blocking uploads
+                    shift = torch.from_numpy(frame_of * SB + sq_shift - seq_off[:-1]).to(dev)
+                    nsq = torch.from_numpy(np.diff(seq_off)).to(dev)
                 idx = torch.repeat_interleave(shift, nsq, output_size=int(seq_off[-1])) \
                     + torch.arange(int(seq_off[-1]), device=dev)
                 seg[:, idx] = torch.stack([ll_d, ml_d, offs_d])
             if fixed:
                 fx = torch.tensor([[j * SB + p, lt] for j, p, lt in fixed], dtype=torch.int64)
-                seg[0, fx[:, 0].to(dev)] = fx[:, 1].to(torch.int32).to(dev)
+                with metrics.phase("torch.zstd_assemble.wait"):  # blocking uploads
+                    fx_d = fx[:, 0].to(dev), fx[:, 1].to(torch.int32).to(dev)
+                seg[0, fx_d[0]] = fx_d[1]
             # counterpart of extract._seg_prefix_validate
             ll, ml, off = (t.view(F, SB).to(torch.int64) for t in seg)
             seg_len = ll + ml
             seg_st = torch.cumsum(seg_len, 1) - seg_len
             lit_st = torch.cumsum(ll, 1) - ll
-            nseg_d = torch.tensor(f_nseg, dtype=torch.int32, device=dev)
+            with metrics.phase("torch.zstd_assemble.wait"):  # a blocking upload
+                nseg_d = torch.tensor(f_nseg, dtype=torch.int32, device=dev)
             valid = torch.arange(SB, device=dev) < nseg_d[:, None]
-            if (valid & (ml > 0) & (off > seg_st + ll)).any():
+            beyond = (valid & (ml > 0) & (off > seg_st + ll)).any()
+            with metrics.phase("torch.zstd_assemble.wait", 1):
+                beyond = bool(beyond)
+            if beyond:
                 raise DecompressError("match offset beyond decoded history")
 
     if max(f_total, default=0) > 0:
         with metrics.phase("torch.replay", sum(f_total)):
+            with metrics.phase("torch.replay.wait"):  # a blocking upload
+                f_total_d = torch.tensor(f_total, dtype=torch.int32, device=dev)
             rows = lz4_torch.replay(
                 lit_flat.view(F, LB), seg_st.to(torch.int32), lit_st.to(torch.int32),
-                seg[0].view(F, SB), seg[2].view(F, SB), nseg_d,
-                torch.tensor(f_total, dtype=torch.int32, device=dev),
-                n_out=max(f_total)).cpu().numpy()
+                seg[0].view(F, SB), seg[2].view(F, SB), nseg_d, f_total_d, n_out=max(f_total))
+            with metrics.phase("torch.replay.wait", rows.nbytes):
+                rows = rows.cpu().numpy()
             outs = [rows[j, :t].tobytes() for j, t in enumerate(f_total)]
 
     with metrics.phase("torch.zstd_checksum", sum(f_total)):
         for (_, _, chk), fb in zip(w.frames, outs):
             if chk is not None and (XXH64State(0).update(fb).digest() & 0xFFFFFFFF) != chk:
                 raise DecompressError("content checksum mismatch")
-    result = b"".join(outs)
+    with metrics.phase("torch.zstd_join", sum(f_total)):
+        result = b"".join(outs)
     if max_out is not None and len(result) > max_out:
         raise DecompressError("zstd output exceeds expected size")
     return result

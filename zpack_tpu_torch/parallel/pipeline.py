@@ -135,9 +135,10 @@ class DeviceCompressor:
                 hi = min(nb, lo + bps)
                 if lo >= hi:
                     break
-                chunk = np.zeros((hi - lo, B), dtype=np.uint8)
                 seg = flat[lo * B : min(n, hi * B)]
-                chunk.reshape(-1)[: len(seg)] = seg
+                with metrics.phase("torch.stage", len(seg)):
+                    chunk = np.zeros((hi - lo, B), dtype=np.uint8)
+                    chunk.reshape(-1)[: len(seg)] = seg
                 with metrics.phase("torch.dispatch", len(seg)):
                     launched.append((lo, mode, self._launch(chunk, mode, dev, dict_dev[dev])))
             for p in pending:
@@ -152,9 +153,10 @@ class DeviceCompressor:
         its estimate."""
         lo, mode, (host, done) = pending
         with metrics.phase("torch.d2h", host[0].numel()):
-            if done is not None:
-                done.synchronize()
-            *arrays, est = (t.cpu().numpy() for t in host)
+            with metrics.phase("torch.d2h.wait", sum(t.nbytes for t in host)):
+                if done is not None:
+                    done.synchronize()
+                *arrays, est = (t.cpu().numpy() for t in host)
             return lo, mode, tuple(arrays), int(est[0])
 
     def compress(self, data: bytes) -> bytes:
@@ -167,16 +169,20 @@ class DeviceCompressor:
         # B <= 64 KiB, so the declared frame block size is the smallest, 64 KiB
         out = bytearray(lz4frame._header(64 << 10, True, False, None))
         for lo, mode, host, _est in self._steps_raw(data):
-            seg = data[lo * B : min(n, (lo + len(host[0])) * B)]
+            end = min(n, (lo + len(host[0])) * B)
+            with metrics.phase("torch.frame", end - lo * B):
+                seg = data[lo * B : end]
             with metrics.phase("torch.serialize", len(seg)):
                 body = native.lz4_serialize_blocks_packed(seg, mode, host, B)
             if body is None:
                 raise RuntimeError(
                     "the native LZ4 serializer is unavailable (native.py "
                     "could not build or load its library)")
-            out += body
-        out += struct.pack("<I", 0)
-        return bytes(out)
+            with metrics.phase("torch.frame", len(body)):
+                out += body
+        with metrics.phase("torch.frame", len(out) + 4):
+            out += struct.pack("<I", 0)
+            return bytes(out)
 
     def tokenize(self, data: bytes, dictionary: bytes | None = None):
         """``(src, mlen, nb, est_total)``: the position-ordered int32 match

@@ -34,6 +34,7 @@ from .errors import (
     ZPackError,
 )
 from .format import records
+from .utils.observe import metrics
 
 
 class _FileSource:
@@ -91,7 +92,8 @@ class Reader:
         self._name_index: dict | None = None
         self._dict = None          # attached/loaded shared zstd dictionary
         self._dict_loaded = False  # (lazy; loading guards against recursion)
-        self._read_archive()
+        with metrics.phase("reader.open"):
+            self._read_archive()
 
     # -- constructors -------------------------------------------------------
 
@@ -180,16 +182,16 @@ class Reader:
         caller falls back to the copying path)."""
         from . import native
         from .parallel import host
-        from .utils.observe import metrics
 
-        try:
-            bounds = host._scan_lz4f_frames(base, e.offset, e.offset + e.comp_size)
-        except Exception:
-            return None
-        if not bounds or len(bounds) < 2:
-            return None
-        if sum(b[2] for b in bounds) != e.uncomp_size:
-            return None
+        with metrics.phase("reader.lz4_scan", e.comp_size):
+            try:
+                bounds = host._scan_lz4f_frames(base, e.offset, e.offset + e.comp_size)
+            except Exception:
+                return None
+            if not bounds or len(bounds) < 2:
+                return None
+            if sum(b[2] for b in bounds) != e.uncomp_size:
+                return None
         with metrics.phase("lz4.decompress", e.uncomp_size):
             return native.lz4f_decompress_frames(base, bounds)
 
@@ -199,7 +201,8 @@ class Reader:
         e = self._resolve(entry)
         if e.offset + e.comp_size > self.file_size:
             raise ZPackError(Result.ERROR_FILE_OFFSET_INVALID, "entry data beyond file")
-        data = self._source.read_at(e.offset, e.comp_size)
+        with metrics.phase("reader.slice", e.comp_size):
+            data = self._source.read_at(e.offset, e.comp_size)
         if len(data) < e.comp_size:
             raise ZPackError(Result.ERROR_FILE_INCOMPLETE, "entry data truncated")
         return data
@@ -249,6 +252,16 @@ class Reader:
         ``verify=False`` (parity: zpack_read_file always verifies,
         lib/zpack_read.c:466-468)."""
         e = self._resolve(entry)
+        with metrics.phase("reader.read_file", e.uncomp_size):
+            return self._read_entry(e, verify)
+
+    def _verify(self, e, out: bytes) -> None:
+        with metrics.phase("reader.xxh3", len(out)):
+            h = xxh3_64(out)
+        if h != e.hash:
+            raise HashMismatchError(e.hash, h)
+
+    def _read_entry(self, e: records.FileEntry, verify: bool) -> bytes:
         # plausibility bound: no supported codec expands beyond ~1e6x
         # (zstd RLE blocks peak near 5e5x); a corrupt uncomp_size field must
         # not drive giant allocations before the size/hash checks fire.
@@ -272,9 +285,7 @@ class Reader:
                 out = self._read_lz4_inplace(base, e)
                 if out is not None:
                     if verify:
-                        h = xxh3_64(out)
-                        if h != e.hash:
-                            raise HashMismatchError(e.hash, h)
+                        self._verify(e, out)
                     return out
         raw = self.read_raw_file(e)
         codec = get_codec(e.comp_method)
@@ -305,9 +316,7 @@ class Reader:
                 f"decompressed size {len(out)} != recorded {e.uncomp_size}",
             )
         if verify:
-            h = xxh3_64(out)
-            if h != e.hash:
-                raise HashMismatchError(e.hash, h)
+            self._verify(e, out)
         return out
 
     def read_files(self, entries=None, verify: bool = True) -> list[bytes]:

@@ -23,6 +23,7 @@ from .codecs import device as codec_device, get_codec
 from .codecs.xxh3 import make_xxh3_state, xxh3_64
 from .errors import Result, ZPackError
 from .format import records
+from .utils.observe import metrics
 
 
 @dataclass
@@ -116,7 +117,8 @@ class Writer:
     def buffer(self) -> bytes | None:
         """Heap-mode output bytes (None for file writers)."""
         if isinstance(self._sink, _HeapSink):
-            return bytes(self._sink.buf)
+            with metrics.phase("writer.buffer", len(self._sink.buf)):
+                return bytes(self._sink.buf)
         return None
 
     @property
@@ -126,7 +128,8 @@ class Writer:
     # -- low-level emit -----------------------------------------------------
 
     def _emit(self, data: bytes) -> None:
-        self._sink.write_at(self.write_offset, data)
+        with metrics.phase("writer.emit", len(data)):
+            self._sink.write_at(self.write_offset, data)
         self.write_offset += len(data)
         self.file_size = max(self.file_size, self.write_offset)
 
@@ -257,12 +260,14 @@ class Writer:
             comp = codec.compress(bytes(data), options.resolved_level())
         offset = self.write_offset
         self._emit(comp)
+        with metrics.phase("writer.xxh3", len(data)):
+            h = xxh3_64(data)
         entry = records.FileEntry(
             filename=filename,
             offset=offset,
             comp_size=len(comp),
             uncomp_size=len(data),
-            hash=xxh3_64(data),
+            hash=h,
             comp_method=int(options.method),
         )
         self.file_entries.append(entry)
@@ -399,11 +404,13 @@ class Writer:
     def write_archive(self, files) -> None:
         """header → data header → files → CDR → EOCDR
         (parity: zpack_write_archive, lib/zpack_write.c:818-829)."""
-        self.write_header()
-        self.write_data_header()
-        self.write_files(files)
-        self.write_cdr()
-        self.write_eocdr()
+        with metrics.phase("writer.write_archive"):
+            self.write_header()
+            self.write_data_header()
+            self.write_files(files)
+            with metrics.phase("writer.records"):
+                self.write_cdr()
+                self.write_eocdr()
 
     def close(self) -> None:
         if self._owns_file and isinstance(self._sink, _FileSink):

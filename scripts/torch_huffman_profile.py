@@ -23,11 +23,12 @@ many of its CTAs are resident at once, then per variant and round the ms a
 launch and the ns a symbol of the longest stream.  Exits 1 if the first
 variant differs from the plain version.
 
-Last, the phase as ``decompress_zstd_device`` runs it, 7 times, each step
+Last, the phase as ``decompress_zstd_device`` runs it after the Python
+walk (``walk_zstd``, where the native one is missing), 7 times, each step
 ended by a synchronisation: ``build_decode_batch`` (the host loop over the
 streams and the table packing), the pageable host-to-device copies of its
 arrays, the launch (the wrapper, its output zeroed), the read-back of
-``final`` and ``_scatter_flat`` (the raw literal runs); and the whole phase
+``final`` and ``_scatter_runs`` (the raw literal runs); and the whole phase
 without the inner synchronisations.  Prints each step's median and range in
 ms.
 """
@@ -137,8 +138,8 @@ def split_phase(comp: bytes, dev) -> None:
         if (final.cpu().numpy() != 0).any():
             raise AssertionError("huffman stream not fully consumed")
         t = lap("read-back of final", t)
-        extract._scatter_flat(lit, raw_parts)
-        lap("_scatter_flat (raw literal runs)", t)
+        extract._scatter_runs(lit, *extract._runs(raw_parts))
+        lap("_scatter_runs (raw literal runs)", t)
         lap("sum of the steps", t0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -146,8 +147,8 @@ def split_phase(comp: bytes, dev) -> None:
             w.streams, w.tables, w.n_syms, stream_dst, n_out=n_out)
         if (final != 0).any():
             raise AssertionError("huffman stream not fully consumed")
-        extract._scatter_flat(lit, raw_parts)
-        lap("the phase as the path runs it", t0)
+        extract._scatter_runs(lit, *extract._runs(raw_parts))
+        lap("the phase as the Python walk's route runs it", t0)
     print(f"torch.huffman_decode split ({len(w.streams)} streams, {len(raw_parts)} raw runs, "
           f"{tensor_mb(batch)} MB to the device; {SPLIT_REPS} runs, median [min, max] ms):")
     for name, ts in steps.items():

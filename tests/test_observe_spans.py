@@ -210,8 +210,9 @@ PARENTS = {
     "torch.lz4f_checksum": {"torch.lz4f_join"},
     "zstd.decompress": {"reader.read_file"},
     "torch.zstd_walk": {"zstd.decompress"},
-    "torch.zstd_walk.literals": {"torch.zstd_walk"},
-    "torch.zstd_walk.sequences": {"torch.zstd_walk"},
+    "torch.zstd_walk.native": {"torch.zstd_walk"},
+    "torch.zstd_walk.literals": {"torch.zstd_walk", "torch.zstd_walk.native"},
+    "torch.zstd_walk.sequences": {"torch.zstd_walk", "torch.zstd_walk.native"},
     "torch.zstd_walk.layout": {"torch.zstd_walk"},
     "torch.huffman_decode": {"zstd.decompress"},
     "torch.huffman_decode.wait": {"torch.huffman_decode"},

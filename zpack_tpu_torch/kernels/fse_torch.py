@@ -604,19 +604,25 @@ class TorchSequenceDecoder:
         ``seq_off`` as numpy.  Raises DecompressError, with the messages of
         ``DeviceSequenceDecoder``, for an offset code above 30 and a stream
         not consumed exactly."""
-        batch = build_decode_batch(items)
+        return self.decode_built(build_decode_batch(items))
+
+    def decode_built(self, batch: dict):
+        """:meth:`decode_batch_device` on a batch of
+        :func:`build_decode_batch`, or one made alike: its ``payload`` may be
+        a uint8 tensor, on the device or not, such as the whole entry the
+        rows point into, rows in ascending order of their bytes."""
         rows, seq_off = batch["rows"], batch["seq_off"]
         with metrics.phase("torch.fse_decode.wait"):  # a blocking upload
             tabs = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
         launched = []
-        for (lo, hi), dev in zip(row_ranges(len(items), self.mesh.size), self.mesh.devices):
+        for (lo, hi), dev in zip(row_ranges(len(rows), self.mesh.size), self.mesh.devices):
             if lo == hi:
                 continue
             part = rows[lo:hi].copy()
             p0, p1 = part[0, 0], part[-1, 0] + part[-1, 1]
             part[:, 0] -= p0
             with metrics.phase("torch.fse_decode.wait"):  # blocking uploads
-                args = (torch.from_numpy(batch["payload"][p0:p1]).to(dev),
+                args = (torch.as_tensor(batch["payload"][p0:p1]).to(dev),
                         torch.from_numpy(part).to(dev),
                         torch.from_numpy(seq_off[lo:hi + 1] - seq_off[lo]).to(dev),
                         torch.from_numpy(batch["al"][lo:hi]).to(dev))
@@ -629,10 +635,10 @@ class TorchSequenceDecoder:
         err = np.concatenate([f[len(f) // 2:] for f in flags])
         if err.any():
             raise DecompressError("offset code out of device range")
-        for i, it in enumerate(items):
-            if it[4] and pos_f[i] != 0:
-                raise DecompressError("sequence bitstream not fully consumed"
-                                      if pos_f[i] > 0 else "sequence bitstream over-read")
+        bad = np.flatnonzero((np.diff(seq_off) > 0) & (pos_f != 0))  # in item order
+        if bad.size:
+            raise DecompressError("sequence bitstream not fully consumed"
+                                  if pos_f[bad[0]] > 0 else "sequence bitstream over-read")
         if len(launched) == 1:
             return launched[0][:3], seq_off
         return tuple(torch.cat([f[c].to(self.device) for f in launched])

@@ -524,10 +524,11 @@ class TorchHuffmanDecoder:
     def decode_built(self, batch: dict, n_out: int):
         """:meth:`decode_batch_device` on a batch of
         :func:`build_decode_batch` (its rows as they stand, malformed ones
-        included)."""
+        included), or one made alike: its ``payload`` may be a uint8 tensor,
+        on the device or not, such as the whole entry the rows point into."""
         if self.mesh.size == 1:
             with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
-                args = [torch.from_numpy(batch[k]).to(self.device) for k in DECODE_ARGS]
+                args = [torch.as_tensor(batch[k]).to(self.device) for k in DECODE_ARGS]
             syms, final = decode_streams(*args, n_out=n_out, widest=batch["widest"])
             with metrics.phase("torch.huffman_decode.wait", final.nbytes):
                 return syms, final.cpu().numpy()
@@ -550,7 +551,7 @@ class TorchHuffmanDecoder:
             part[:, 4] = np.cumsum(n[lo:hi]) - n[lo:hi]
             part[~ok, 5] = -1
             out, final = decode_streams(
-                torch.from_numpy(payload[p0:p1]).to(dev), torch.from_numpy(part).to(dev),
+                torch.as_tensor(payload[p0:p1]).to(dev), torch.from_numpy(part).to(dev),
                 tables[dev], n_out=int(n[lo:hi].sum()),
                 widest=int(part[ok, 1].max(initial=0)))
             launched.append((lo, hi, out, final))

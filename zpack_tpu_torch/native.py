@@ -1,5 +1,9 @@
 """ctypes loader for the native host backend (native/zpack_native.cpp).
 
+The port's library also holds ``native/zstd_walk.cpp``, the walk of a zstd
+entry into the device decoders' batches (:class:`ZstdWalk`), which the JAX
+package's library does not.
+
 Builds the shared library on first use with g++, from the repository's
 ``native/`` sources into ``zpack_tpu_torch/_build/`` (which git ignores), so
 every machine compiles its own ``-march=native`` library; all callers fall
@@ -29,6 +33,7 @@ _SRCS = [
     _ROOT / "native" / "zpack_native.cpp",
     _ROOT / "native" / "zstd_decode.cpp",
     _ROOT / "native" / "zstd_encode.cpp",
+    _ROOT / "native" / "zstd_walk.cpp",
 ]
 _SO = pathlib.Path(__file__).resolve().parent / "_build" / "_zpack_native.so"
 # Prebuilt .so override (e.g. a sanitizer build from scripts/sanitize_native.py)
@@ -179,6 +184,13 @@ def get_lib() -> ctypes.CDLL | None:
         lib.zn_xxh3_update.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
         lib.zn_xxh3_digest.restype = ctypes.c_uint64
         lib.zn_xxh3_digest.argtypes = [ctypes.c_void_p]
+        if hasattr(lib, "zw_literals"):  # absent from a library built elsewhere
+            lib.zw_literals.restype = ctypes.c_void_p
+            lib.zw_literals.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p]
+            lib.zw_sequences.restype = ctypes.c_int
+            lib.zw_sequences.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.zw_free.restype = None
+            lib.zw_free.argtypes = [ctypes.c_void_p]
         _LIB = lib
         return _LIB
 
@@ -588,3 +600,94 @@ def xxh3_state():
     if get_lib() is None:
         return None
     return NativeXXH3State()
+
+
+# ---------------------------------------------------------------------------
+# zstd walk (native/zstd_walk.cpp)
+# ---------------------------------------------------------------------------
+
+
+class _ZwLiterals(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int64) for k in ("n_frames", "n_blocks", "n_streams", "n_tables",
+                                                "n_runs", "lit_row")]
+                + [(k, ctypes.c_void_p) for k in ("frame_chk", "blocks", "streams",
+                                                   "tables", "runs")])
+
+
+class _ZwSequences(ctypes.Structure):
+    _fields_ = [("n_items", ctypes.c_int64)] + [
+        (k, ctypes.c_void_p) for k in ("rows", "seq_off", "al", "tables", "slots")]
+
+
+def _copy_out(ptr, dtype, shape) -> np.ndarray:
+    """A numpy copy of the native array at ``ptr``."""
+    out = np.empty(shape, dtype)
+    if out.nbytes:
+        ctypes.memmove(out.ctypes.data, ptr, out.nbytes)
+    return out
+
+
+def zstd_walk_lib() -> ctypes.CDLL | None:
+    """The library when it holds the zstd walk, else None."""
+    lib = get_lib()
+    return lib if lib is not None and hasattr(lib, "zw_literals") else None
+
+
+class ZstdWalk:
+    """The native walk of one zstd entry, in two passes: :meth:`literals`,
+    then :meth:`sequences`.  Each returns its arrays, copied out, or None
+    where the walk rejects the input: then the Python walk
+    (``parallel/extract.walk_zstd``) either raises its error or accepts
+    what this one does not.  A context manager: the native walk is freed
+    on leaving it."""
+
+    def __init__(self, lib: ctypes.CDLL, data: bytes):
+        self._lib, self._data = lib, bytes(data)  # the walk points into ``_data``
+        self._handle = None
+        self._n_blocks = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._handle:
+            self._lib.zw_free(self._handle)
+            self._handle = None
+        return False
+
+    def literals(self) -> dict | None:
+        """Frames, blocks, literals sections and Huffman tables:
+        ``frame_chk`` (F,) (-1 for no checksum), ``blocks`` (NB, 6) (frame,
+        offset, size, lits_end, literal bytes, block type), ``streams`` (S,
+        7) (``huffman_torch.DECODE_COLS``, offsets into the entry, each
+        destination placed), ``tables`` (T, 2048) int32, ``runs`` (R, 4),
+        the raw and RLE literal runs (length, destination, source in the
+        entry, step: 1 raw, 0 one byte repeated), and ``lit_row``, the
+        bytes of a frame's literal row."""
+        out = _ZwLiterals()
+        self._handle = self._lib.zw_literals(self._data, len(self._data), ctypes.byref(out))
+        if not self._handle:
+            return None
+        self._n_blocks = out.n_blocks
+        i64 = np.int64
+        return {"frame_chk": _copy_out(out.frame_chk, i64, out.n_frames),
+                "blocks": _copy_out(out.blocks, i64, (out.n_blocks, 6)),
+                "streams": _copy_out(out.streams, i64, (out.n_streams, 7)),
+                "tables": _copy_out(out.tables, np.int32, (out.n_tables, 2048)),
+                "runs": _copy_out(out.runs, i64, (out.n_runs, 4)),
+                "lit_row": int(out.lit_row)}
+
+    def sequences(self) -> dict | None:
+        """Sequences sections and FSE tables, after :meth:`literals`:
+        ``fse_torch.build_decode_batch``'s ``rows`` (offsets into the
+        entry), ``seq_off``, ``al`` and ``tables``, and ``slots`` (NB,),
+        each block's item or -1."""
+        out = _ZwSequences()
+        if self._lib.zw_sequences(self._handle, ctypes.byref(out)):
+            return None
+        B, i64 = out.n_items, np.int64
+        return {"rows": _copy_out(out.rows, i64, (B, 3)),
+                "seq_off": _copy_out(out.seq_off, i64, B + 1),
+                "al": _copy_out(out.al, np.int32, (B, 3)),
+                "tables": _copy_out(out.tables, np.int32, (B, 3, 512)),
+                "slots": _copy_out(out.slots, i64, self._n_blocks)}

@@ -10,10 +10,12 @@ Counterpart of ``zpack_tpu/parallel/extract.py``.
   decoding sequential; the codec sends those to the host decoder before
   calling here.
 * :func:`decompress_zstd_device`: the host walks frame and block headers
-  (:func:`walk_zstd`, a few bytes per block), then the device decodes every
-  Huffman literal stream, every FSE sequence section and every repeat
-  offset, the assembly lays the sequences out per frame with torch ops, and
-  each frame replays as one row of the LZ4 replayer.
+  and builds the decode tables (the native walk, ``native/zstd_walk.cpp``,
+  in two calls an entry; :func:`walk_zstd` where the library lacks it or
+  rejects the input), then the device decodes every Huffman literal
+  stream, every FSE sequence section and every repeat offset, the assembly
+  lays the sequences out per frame with torch ops, and each frame replays
+  as one row of the LZ4 replayer.
 * :func:`decompress_zstd_batched`, its fallback: Huffman literals on the
   device, sequences on the host.
 """
@@ -21,18 +23,19 @@ Counterpart of ``zpack_tpu/parallel/extract.py``.
 from __future__ import annotations
 
 import struct
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..codecs.lz4 import frame as lz4f
 from ..codecs.xxh3 import XXH32State, XXH64State, xxh32
 from ..codecs.zstd import frame as zframe, seq as zseq
 from ..errors import DecompressError
 from ..utils.observe import metrics
 
-from ..kernels import fse_torch, lz4_torch
+from ..kernels import fse_torch, huffman_torch, lz4_torch
 from ..kernels.huffman_torch import TorchHuffmanDecoder
 from ..kernels.lz4_torch import DeviceLZ4Replayer
 
@@ -177,7 +180,8 @@ def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
     and (with ``sequences``) the sequence-section headers and FSE tables.
     Copy of the structural walk of ``extract.decompress_zstd_device``
     (``extract.py:275-361``); dictionary frames and reserved block types
-    raise DecompressError there and here."""
+    raise DecompressError there and here.  The device route runs it where
+    the native walk (:func:`zstd_plan`) is missing or rejects the input."""
     frames: list = []
     streams: list[bytes] = []
     tables: list = []
@@ -316,21 +320,112 @@ def _literal_layout(w: ZstdWalk):
     return LB, [j * LB + p for j, p in dst], [(r, j * LB + p) for r, j, p in raw]
 
 
-def _scatter_flat(dst: torch.Tensor, parts: list[tuple]) -> None:
-    """Write byte runs ``(bytes, flat destination)`` into the flat ``dst``
-    (counterpart of ``extract._scatter_flat_u8``): one upload of the runs,
-    one scatter.  The runs are exact, so no lane is padding."""
-    if not parts:
+def _runs(parts: list[tuple]) -> tuple:
+    """Byte runs ``(bytes, flat destination)`` as :func:`_scatter_runs`
+    takes them: the runs back to back, and (length, destination, start,
+    step 1) a run."""
+    lens = np.array([len(p) for p, _ in parts], dtype=np.int64)
+    runs = np.stack([lens, np.array([d for _, d in parts], dtype=np.int64),
+                     np.cumsum(lens) - lens, np.ones_like(lens)], axis=1).reshape(-1, 4)
+    return np.frombuffer(bytearray(b"".join(p for p, _ in parts)), dtype=np.uint8), runs
+
+
+def _scatter_runs(dst: torch.Tensor, source, runs: np.ndarray) -> None:
+    """Write literal runs into the flat ``dst`` (counterpart of
+    ``extract._scatter_flat_u8``): run ``(length, destination, start,
+    step)`` writes ``source[start + k * step]`` to ``destination + k`` for
+    ``k`` below its length (step 1 a raw run, 0 one byte repeated).
+    ``source`` is a uint8 array or tensor, on the device or not.  One
+    upload of the runs, one gather, one scatter.  The runs are exact, so no
+    lane is padding."""
+    if not len(runs):
         return
-    dev = dst.device
-    lens = torch.tensor([len(p) for p, _ in parts], dtype=torch.int64)
-    shift = torch.tensor([d for _, d in parts], dtype=torch.int64) - (torch.cumsum(lens, 0) - lens)
-    flat = torch.frombuffer(bytearray(b"".join(p for p, _ in parts)), dtype=torch.uint8)
+    dev, total = dst.device, int(runs[:, 0].sum())
     with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
-        shift, lens, flat_d = shift.to(dev), lens.to(dev), flat.to(dev)
-    idx = torch.repeat_interleave(shift, lens, output_size=len(flat)) \
-        + torch.arange(len(flat), device=dev)
-    dst[idx] = flat_d
+        runs_d, src = torch.from_numpy(runs).to(dev), torch.as_tensor(source).to(dev)
+    lens = runs_d[:, 0]
+    run_of = torch.repeat_interleave(torch.arange(len(runs), device=dev), lens, output_size=total)
+    k = torch.arange(total, device=dev) - (torch.cumsum(lens, 0) - lens)[run_of]
+    dst[runs_d[run_of, 1] + k] = src[runs_d[run_of, 2] + k * runs_d[run_of, 3]]
+
+
+class ZstdPlan(NamedTuple):
+    """What the device route needs of an entry's walk, from either walk."""
+    frame_chk: list       # each frame's content checksum, or None
+    blk_frame: list       # each block's frame
+    blk_lits: list        # each block's literal bytes
+    blk_slot: list        # each block's sequence item, or -1
+    lit_row: int          # LB: frame j's literals fill row j of an (F, LB) table
+    n_streams: int        # Huffman streams
+    n_syms: int           # their symbols
+    #: the Huffman batch (``huffman_torch.build_decode_batch``'s arrays),
+    #: given the entry on the device where the batch points into it
+    huffman: Callable
+    #: the raw and RLE literal runs (:func:`_scatter_runs`), and the bytes
+    #: they are read from (None: the entry)
+    runs: np.ndarray
+    run_source: np.ndarray | None
+    n_items: int          # blocks with sequences
+    n_seqs: int           # their sequences
+    sequences: Callable   # the FSE batch, likewise
+    native: bool          # the batches point into the entry
+
+
+def _python_plan(data: bytes) -> ZstdPlan:
+    """The plan of :func:`walk_zstd` and :func:`_literal_layout`; the
+    batches are built when asked for, where the decoders need them, so
+    their errors keep their order."""
+    w = walk_zstd(data)
+    with metrics.phase("torch.zstd_walk.layout", len(w.streams)):
+        LB, stream_dst, raw_parts = _literal_layout(w)
+        blocks = [(j, len(b.lits[1]) if b.lits[0] == "raw" else b.lits[3],
+                   -1 if b.slot is None else b.slot)
+                  for j, (_, bl, _) in enumerate(w.frames) for b in bl]
+        blk_frame, blk_lits, blk_slot = (list(c) for c in zip(*blocks)) if blocks \
+            else ([], [], [])
+        run_source, runs = _runs(raw_parts)
+        return ZstdPlan(
+            [chk for _, _, chk in w.frames], blk_frame, blk_lits, blk_slot, LB,
+            len(w.streams), sum(w.n_syms),
+            lambda entry: huffman_torch.build_decode_batch(w.streams, w.tables, w.n_syms,
+                                                           stream_dst),
+            runs, run_source, len(w.seq_items), sum(it[4] for it in w.seq_items),
+            lambda entry: fse_torch.build_decode_batch(w.seq_items), False)
+
+
+def _native_plan(lib, data: bytes) -> ZstdPlan | None:
+    """The plan of the native walk, or None where it rejects the input."""
+    with native.ZstdWalk(lib, data) as nw:
+        with metrics.phase("torch.zstd_walk.native", len(data)):
+            with metrics.phase("torch.zstd_walk.literals", len(data)):
+                lits = nw.literals()
+            if lits is None:
+                return None
+            with metrics.phase("torch.zstd_walk.sequences", len(data)):
+                seqs = nw.sequences()
+            if seqs is None:
+                return None
+    with metrics.phase("torch.zstd_walk.layout", len(lits["streams"])):
+        streams, blocks = lits["streams"], lits["blocks"]
+        huf = {"rows": streams, "tables": lits["tables"],
+               "widest": int(streams[:, 1].max(initial=0))}
+        fse = {k: seqs[k] for k in ("rows", "seq_off", "al", "tables")}
+        return ZstdPlan(
+            [None if c < 0 else c for c in lits["frame_chk"].tolist()],
+            blocks[:, 0].tolist(), blocks[:, 4].tolist(), seqs["slots"].tolist(),
+            lits["lit_row"], len(streams), int(streams[:, 3].sum()),
+            lambda entry: {**huf, "payload": entry},
+            lits["runs"], None, len(fse["rows"]),
+            int(fse["seq_off"][-1]), lambda entry: {**fse, "payload": entry}, True)
+
+
+def zstd_plan(data: bytes) -> ZstdPlan:
+    """Walk concatenated zstd frames for the device route: the native walk
+    where the library has it and accepts the input, else :func:`walk_zstd`
+    (which then raises its DecompressError, or accepts the input)."""
+    lib = native.zstd_walk_lib()
+    plan = None if lib is None else _native_plan(lib, data)
+    return _python_plan(data) if plan is None else plan
 
 
 def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
@@ -338,7 +433,7 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
     """Decompress concatenated zstd frames with all entropy decoding and
     sequence execution on ``device`` (``extract.decompress_zstd_device``):
 
-    1. host structural walk (:func:`walk_zstd`);
+    1. host structural walk and tables (:func:`zstd_plan`);
     2. every Huffman literal stream in one launch, each written straight to
        its place in its frame's literal row; raw literal runs scattered in;
     3. every FSE sequence section in one launch;
@@ -360,26 +455,32 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
     dev = torch.device(device)
     shards = dev if mesh is None else mesh
     with metrics.phase("torch.zstd_walk", len(data)):
-        w = walk_zstd(data)
-        with metrics.phase("torch.zstd_walk.layout", len(w.streams)):
-            LB, stream_dst, raw_parts = _literal_layout(w)
-    F = len(w.frames)
+        plan = zstd_plan(data)
+    F = len(plan.frame_chk)
+    LB = plan.lit_row
 
-    with metrics.phase("torch.huffman_decode", sum(w.n_syms)):
-        if w.streams:
-            lit_flat, final = TorchHuffmanDecoder(shards).decode_batch_device(
-                w.streams, w.tables, w.n_syms, stream_dst, n_out=F * LB)
+    with metrics.phase("torch.huffman_decode", plan.n_syms):
+        entry = None
+        if plan.native and data:
+            # the native batches and runs point into the entry: one upload
+            with metrics.phase("torch.huffman_decode.wait", len(data)):  # a blocking upload
+                entry = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+        if plan.n_streams:
+            lit_flat, final = TorchHuffmanDecoder(shards).decode_built(plan.huffman(entry),
+                                                                       F * LB)
             if (final != 0).any():
                 raise DecompressError("huffman stream not fully consumed")
             lit_flat = lit_flat.to(dev)
         else:
             lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
-        _scatter_flat(lit_flat, raw_parts)
+        _scatter_runs(lit_flat, entry if plan.run_source is None else plan.run_source,
+                      plan.runs)
 
-    B = len(w.seq_items)
+    B = plan.n_items
     if B:
-        with metrics.phase("torch.fse_decode", sum(it[4] for it in w.seq_items)):
-            flat, seq_off = fse_torch.TorchSequenceDecoder(shards).decode_batch_device(w.seq_items)
+        with metrics.phase("torch.fse_decode", plan.n_seqs):
+            flat, seq_off = fse_torch.TorchSequenceDecoder(shards).decode_built(
+                plan.sequences(entry))
             ll_d, ml_d, ov_d = (t.to(dev) for t in flat)
         with metrics.phase("torch.rep_resolve", int(seq_off[-1])):
             with metrics.phase("torch.rep_resolve.wait"):  # a blocking upload
@@ -387,62 +488,65 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
             totals = fse_torch.rep_totals(ov_d, ll_d, ml_d, seq_off_d)
             with metrics.phase("torch.rep_resolve.wait", sum(t.nbytes for t in totals)):
                 tot_sel, tot_val, sums = (t.cpu().numpy() for t in totals)
-            entry = np.zeros((B, 3), np.int32)
-            for _, blocks, _ in w.frames:
-                rep = [1, 4, 8]
-                for b in blocks:
-                    if b.slot is not None:
-                        entry[b.slot] = rep
-                        rep = fse_torch.eval_rep_map(tot_sel[b.slot], tot_val[b.slot], rep)
+            entry_rep = np.zeros((B, 3), np.int32)
+            frame = -1
+            for j, slot in zip(plan.blk_frame, plan.blk_slot):
+                if j != frame:  # each frame starts from the initial offsets
+                    frame, rep = j, [1, 4, 8]
+                if slot >= 0:
+                    entry_rep[slot] = rep
+                    rep = fse_torch.eval_rep_map(tot_sel[slot], tot_val[slot], rep)
             with metrics.phase("torch.rep_resolve.wait"):  # a blocking upload
-                entry_d = torch.from_numpy(entry).to(dev)
+                entry_d = torch.from_numpy(entry_rep).to(dev)
             offs_d, err = fse_torch.rep_apply(ov_d, ll_d, seq_off_d, entry_d)
             with metrics.phase("torch.rep_resolve.wait", err.nbytes):
                 err = err.cpu().numpy()
             if err.any():
                 raise DecompressError("repeat offset underflow")
-        sum_ll, sum_ml = sums[:, 0], sums[:, 1]
+        sum_ll, sum_ml = sums[:, 0].tolist(), sums[:, 1].tolist()
 
     with metrics.phase("torch.zstd_assemble", F):
         # host layout: every segment's frame row and column, known from the
         # headers and the per-block sums
         f_nseg, f_total = [], []
         sq_shift = np.zeros(B, np.int64)
+        n_seq = np.diff(seq_off).tolist() if B else []
         fixed = []  # literal-only segments: (frame, column, literal length)
-        for j, (_, blocks, _) in enumerate(w.frames):
-            nseg = total = 0
-            for b in blocks:
-                lt = len(b.lits[1]) if b.lits[0] == "raw" else b.lits[3]
-                if b.slot is None:
-                    total += lt
-                    if lt:
-                        fixed.append((j, nseg, lt))
-                        nseg += 1
-                    continue
-                tail = lt - int(sum_ll[b.slot])
+        nseg = total = 0
+        n_blk = len(plan.blk_frame)
+        for i, (j, lt, slot) in enumerate(zip(plan.blk_frame, plan.blk_lits, plan.blk_slot)):
+            if slot < 0:
+                total += lt
+                if lt:
+                    fixed.append((j, nseg, lt))
+                    nseg += 1
+            else:
+                tail = lt - sum_ll[slot]
                 if tail < 0:
                     raise DecompressError("literal run overruns literals")
-                produced = lt + int(sum_ml[b.slot])
+                produced = lt + sum_ml[slot]
                 if produced > zframe.MAX_BLOCK_SIZE:
                     # a block regenerates at most 128 KiB (RFC 8878)
                     raise DecompressError("block regenerated size too large")
                 total += produced
-                sq_shift[b.slot] = nseg  # the frame row's base is added below
-                nseg += int(seq_off[b.slot + 1] - seq_off[b.slot])
+                sq_shift[slot] = nseg  # the frame row's base is added below
+                nseg += n_seq[slot]
                 if tail:
                     fixed.append((j, nseg, tail))
                     nseg += 1
-            f_nseg.append(nseg)
-            f_total.append(total)
-            if max_out is not None and sum(f_total) > max_out:
-                raise DecompressError("zstd output exceeds expected size")
+            if i + 1 == n_blk or plan.blk_frame[i + 1] != j:  # the frame's last block
+                f_nseg.append(nseg)
+                f_total.append(total)
+                nseg = total = 0
+                if max_out is not None and sum(f_total) > max_out:
+                    raise DecompressError("zstd output exceeds expected size")
         outs = [b""] * F
         if max(f_total, default=0) > 0:
             SB = max(max(f_nseg), 1)
             seg = torch.zeros((3, F * SB), dtype=torch.int32, device=dev)  # ll, ml, off
             if B:
-                frame_of = np.array([j for j, (_, blocks, _) in enumerate(w.frames)
-                                     for b in blocks if b.slot is not None], np.int64)
+                frame_of = np.array([j for j, slot in zip(plan.blk_frame, plan.blk_slot)
+                                     if slot >= 0], np.int64)
                 with metrics.phase("torch.zstd_assemble.wait"):  # blocking uploads
                     shift = torch.from_numpy(frame_of * SB + sq_shift - seq_off[:-1]).to(dev)
                     nsq = torch.from_numpy(np.diff(seq_off)).to(dev)
@@ -480,7 +584,7 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
             outs = [rows[j, :t].tobytes() for j, t in enumerate(f_total)]
 
     with metrics.phase("torch.zstd_checksum", sum(f_total)):
-        for (_, _, chk), fb in zip(w.frames, outs):
+        for chk, fb in zip(plan.frame_chk, outs):
             if chk is not None and (XXH64State(0).update(fb).digest() & 0xFFFFFFFF) != chk:
                 raise DecompressError("content checksum mismatch")
     with metrics.phase("torch.zstd_join", sum(f_total)):

@@ -275,3 +275,142 @@ def test_phase_is_called_with_a_name_and_bytes_only(path):
         assert call is not None, f"{path}:{node.lineno} binds metrics.phase ahead of the call"
         assert 1 <= len(call.args) <= 2 and all(k.arg == "nbytes" for k in call.keywords), \
             f"{path}:{call.lineno}"
+
+
+def _count_lookups(tree):
+    """Every ``metrics.count`` attribute in ``tree``."""
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr == "count"
+            and isinstance(n.value, ast.Name) and n.value.id == "metrics"]
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")))
+def test_count_is_called_with_a_name_and_counts_only(path):
+    """Every ``metrics.count`` is looked up at its call and passed
+    ``(name)``, ``(name, n)`` or ``(name, n, nbytes)``, the name a string
+    or a string plus a key."""
+    tree = ast.parse((PKG / path).read_text())
+    calls = {id(n.func): n for n in ast.walk(tree) if isinstance(n, ast.Call)}
+    for node in _count_lookups(tree):
+        call = calls.get(id(node))
+        assert call is not None, f"{path}:{node.lineno} binds metrics.count ahead of the call"
+        assert 1 <= len(call.args) <= 3 and all(k.arg in ("n", "nbytes") for k in call.keywords), \
+            f"{path}:{call.lineno}"
+        name = call.args[0]
+        if isinstance(name, ast.BinOp):
+            name = name.left
+        assert isinstance(name, ast.Constant) and isinstance(name.value, str), \
+            f"{path}:{call.lineno}"
+
+
+# -- counts ---------------------------------------------------------------------
+
+def test_count_lands_under_the_open_phase():
+    m = Metrics()
+    m.count("launch.k")
+    with m.phase("outer"):
+        m.count("launch.k", 2, nbytes=64)
+        with m.phase("inner"):
+            m.count("launch.k")
+            m.count("launch.j")
+    s = m.snapshot()
+    assert s["launch.k"]["calls"] == 4 and s["launch.k"]["bytes"] == 64
+    assert s["launch.k"]["parents"] == {"": 1, "outer": 2, "inner": 1}
+    assert s["launch.j"]["parents"] == {"inner": 1}
+    assert set(s["launch.k"]) == OLD_KEYS | {"self_seconds", "parents"}
+
+
+def test_count_on_another_thread_has_no_parent():
+    m = Metrics()
+    with m.phase("main"):
+        t = threading.Thread(target=lambda: m.count("launch.k"))
+        t.start()
+        t.join(timeout=10)
+    assert not t.is_alive()
+    assert m.snapshot()["launch.k"]["parents"] == {"": 1}
+
+
+def test_count_takes_no_time_and_leaves_self_time_alone():
+    m = Metrics()
+    with m.phase("outer"):
+        time.sleep(0.005)
+        for _ in range(1000):
+            m.count("launch.k")
+    s = m.snapshot()
+    assert s["launch.k"]["seconds"] == 0 and s["launch.k"]["self_seconds"] == 0
+    assert s["launch.k"]["MBps"] == 0.0
+    assert s["outer"]["self_seconds"] == s["outer"]["seconds"]
+
+
+def test_count_survives_reset_and_snapshot():
+    m = Metrics()
+    with m.phase("a"):
+        m.count("launch.k")
+    first = m.snapshot()
+    first["launch.k"]["parents"]["a"] = 99  # a snapshot is a copy
+    assert m.snapshot()["launch.k"]["parents"] == {"a": 1}
+    m.reset()
+    assert m.snapshot() == {}
+    m.count("launch.k", 3)
+    assert m.snapshot()["launch.k"]["calls"] == 3
+    assert json.loads(m.report())["launch.k"]["parents"] == {"": 3}
+
+
+def _statement_lists(tree):
+    for node in ast.walk(tree):
+        for field in ("body", "orelse", "finalbody"):
+            stmts = getattr(node, field, None)
+            if isinstance(stmts, list) and stmts and isinstance(stmts[0], ast.stmt):
+                yield stmts
+
+
+def _launch_bumps(tree):
+    """``(statement, the statement after it)`` for every ``LAUNCHES[...] += 1``."""
+    for stmts in _statement_lists(tree):
+        for i, s in enumerate(stmts):
+            if (isinstance(s, ast.AugAssign) and isinstance(s.op, ast.Add)
+                    and isinstance(s.target, ast.Subscript)
+                    and isinstance(s.target.value, ast.Name) and s.target.value.id == "LAUNCHES"):
+                yield s, stmts[i + 1] if i + 1 < len(stmts) else None
+
+
+def _counts_launch_of(stmt, key) -> bool:
+    """``stmt`` is ``metrics.count("launch.<key>")`` for the subscript ``key``."""
+    if not (isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call)):
+        return False
+    call = stmt.value
+    if not (isinstance(call.func, ast.Attribute) and call.func.attr == "count"
+            and isinstance(call.func.value, ast.Name) and call.func.value.id == "metrics"
+            and len(call.args) == 1 and not call.keywords):
+        return False
+    name = call.args[0]
+    if isinstance(key, ast.Constant):
+        return isinstance(name, ast.Constant) and name.value == "launch." + key.value
+    return (isinstance(name, ast.BinOp) and isinstance(name.op, ast.Add)
+            and isinstance(name.left, ast.Constant) and name.left.value == "launch."
+            and ast.dump(name.right) == ast.dump(key))
+
+
+KERNEL_MODULES = ["kernels/huffman_torch.py", "kernels/fse_torch.py", "kernels/lz4_torch.py",
+                  "kernels/xxh3_torch.py"]
+
+
+@pytest.mark.parametrize("path", KERNEL_MODULES)
+def test_every_launch_is_counted_in_the_registry(path):
+    """Each ``LAUNCHES[key] += 1`` is followed by
+    ``metrics.count("launch.<key>")`` with the same key, so the registry
+    sees every launch the module dict does, under the phase open."""
+    tree = ast.parse((PKG / path).read_text())
+    bumps = list(_launch_bumps(tree))
+    assert bumps, path
+    for bump, after in bumps:
+        assert _counts_launch_of(after, bump.target.slice), f"{path}:{bump.lineno}"
+
+
+def test_launch_check_sees_a_missing_count():
+    src = ("def f(k):\n    LAUNCHES['a'] += 1\n    metrics.count('launch.a')\n"
+           "    LAUNCHES[k] += 1\n    metrics.count('launch.' + k)\n"
+           "    LAUNCHES['b'] += 1\n    metrics.count('launch.a')\n"
+           "    LAUNCHES[k] += 1\n")
+    got = [_counts_launch_of(after, bump.target.slice)
+           for bump, after in _launch_bumps(ast.parse(src))]
+    assert got == [True, True, False, False]

@@ -225,6 +225,7 @@ def encode_seq_streams(fields, seq_off, tables, al, word_off, *, n_words: int):
         return words, total
     _encode_launch(args, words, total, 3)
     LAUNCHES["fse_encode"] += 1
+    metrics.count("launch.fse_encode")
     return words, total
 
 
@@ -545,6 +546,7 @@ def decode_seq_streams(payload, rows, seq_off, al, tables):
             err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fse_decode")
     LAUNCHES["fse_decode"] += 1
+    metrics.count("launch.fse_decode")
     return lls, mls, ovs, pos_f, err
 
 
@@ -776,6 +778,7 @@ def _rep_launch(name: str, tensors: tuple, outs: tuple, B: int) -> None:
                                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     LAUNCHES[name] += 1
+    metrics.count("launch." + name)
 
 
 def rep_totals(ovs, lls, mls, seq_off):

@@ -173,6 +173,7 @@ def encode_streams(syms, rows, tables, *, n_words: int):
     if rows.shape[0]:
         _encode_launch(args, words, total)
         LAUNCHES["huffman_encode"] += 1
+        metrics.count("launch.huffman_encode")
     return words, total
 
 
@@ -457,6 +458,7 @@ def decode_streams(payload, rows, tables, *, n_out: int, widest: int | None = No
             torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(rc, "huffman_decode")
     LAUNCHES["huffman_decode"] += 1
+    metrics.count("launch.huffman_decode")
     return out, final
 
 

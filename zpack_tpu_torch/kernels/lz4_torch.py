@@ -240,6 +240,7 @@ def tokenize_est(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
             torch.cuda.current_stream(blocks.device).cuda_stream)
     _build.check(rc, "lz4_tokenize")
     LAUNCHES[launch_key(mode)] += 1
+    metrics.count("launch." + launch_key(mode))
     return arrays, est
 
 
@@ -771,6 +772,7 @@ def parse_batch(payload: torch.Tensor, offsets, out_sizes) -> dict:
     bp, S, L, n_out = _batch_shape(n_seq, lit_total, out_len)
     out = _parse_layout(payload, w, bp, S, L)
     LAUNCHES["lz4_parse"] += 1
+    metrics.count("launch.lz4_parse")
     return {**out, "n_out": n_out, "out_len_host": out_len}
 
 
@@ -867,6 +869,7 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lz4_replay")
     LAUNCHES["lz4_replay"] += 1
+    metrics.count("launch.lz4_replay")
     with metrics.phase("torch.replay.wait", 4):
         failed = int(state[0])
     if failed:

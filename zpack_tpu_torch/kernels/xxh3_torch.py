@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..codecs import xxh3 as H
+from ..utils.observe import metrics
 
 from . import _build
 
@@ -289,6 +290,7 @@ def accumulate_batch(flat: torch.Tensor, offsets: torch.Tensor, secret: torch.Te
             torch.cuda.current_stream(flat.device).cuda_stream)
     _build.check(rc, "xxh3_batch")
     LAUNCHES["xxh3_batch"] += 1
+    metrics.count("launch.xxh3_batch")
     return acc, hashes
 
 
@@ -361,6 +363,7 @@ def accumulate_stream(data: torch.Tensor, secret: torch.Tensor):
             torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(rc, "xxh3_stream")
     LAUNCHES["xxh3_stream"] += 1
+    metrics.count("launch.xxh3_stream")
     return acc, hashes
 
 

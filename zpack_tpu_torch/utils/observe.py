@@ -12,7 +12,10 @@ knows its parent (the innermost phase open on its thread when it began)
 and its self time (its time less that of the phases opened inside it).  A
 phase whose name ends in ``.wait`` is one where the host blocks on the
 device (an event or stream synchronisation, a device-to-host read, a
-blocking copy); its bytes are those it brings to the host.
+blocking copy); its bytes are those it brings to the host.  A count
+(:meth:`Metrics.count`) is an event of no duration recorded the same way,
+under the phase open when it happened: each hand-written kernel launch is
+one, named ``launch.<kernel>``.
 """
 
 from __future__ import annotations
@@ -103,6 +106,19 @@ class Metrics:
         """A context manager that times its block as the phase ``name``
         and counts ``nbytes`` to it."""
         return _Span(self, name, nbytes)
+
+    def count(self, name: str, n: int = 1, nbytes: int = 0) -> None:
+        """Count ``n`` events of ``name`` (a kernel launch, say) and
+        ``nbytes`` to it, under the phase open on this thread: a phase of no
+        time, whose calls, bytes and parents add up as a span's do, and
+        which leaves its parent's self time as it is."""
+        stack = getattr(self._threads, "stack", None)
+        up = stack[-1].name if stack else ""
+        with self._lock:
+            s = self._stats[name]
+            s.calls += n
+            s.bytes += nbytes
+            s.parents[up] = s.parents.get(up, 0) + n
 
     def snapshot(self) -> dict[str, dict]:
         with self._lock:

@@ -61,10 +61,12 @@
    decode with the python oracle);
 7. zstd extract: the Writer with the port's engine writes the 64 MiB corpus
    as one zstd level-3 entry (16 frames); a first ``decompress_zstd_device``
-   run over its bytes records the inputs of every kernel it launches; the
-   Huffman decode, FSE decode and repeat-offset kernels, and the replay on
-   the zstd frame rows, are held against their plain versions on them
-   (exact), the FSE decode on the adversarial batches of
+   run over its bytes, with the launch counters at zero, records the inputs
+   of every kernel it launches (each once); the Huffman decode, FSE decode
+   and repeat-offset kernels, the assembly's stitch, layout and trim (every
+   output, the check record and the literal rows), and the replay on the
+   zstd frame rows, are held against their plain versions on them (exact)
+   and timed, the FSE decode on the adversarial batches of
    ``kernels/fse_cases.py`` (every table mode, one sequence, the corrupt
    streams, 0 to 3,000 sequences in one launch, a row above the
    shared-memory stage read from global memory; exact), and the Huffman
@@ -74,7 +76,7 @@
    1,000 short ones; exact); then
    ``Reader.read_file`` of the entry runs twice with the launch counters
    and the codec's fallback counts at zero: the corpus must come back (XXH3
-   verified), all four kernels must have been launched and no fallback
+   verified), every one of those kernels must have been launched and no fallback
    taken; ``native.zstd_decompress`` of the entry is timed for
    scale; the fallback ``decompress_zstd_batched`` must decode the first
    frame, and a frame with one corrupted byte must raise DecompressError;
@@ -1050,7 +1052,14 @@ ZSTD_ENTRY = "bench.zst"
 #: wrappers; each plain version is the wrapper's name + "_plain"
 EXTRACT_KERNELS = {"huffman_decode": "decode_streams", "fse_decode": "decode_seq_streams",
                    "rep_totals": "rep_totals", "rep_apply": "rep_apply",
-                   "lz4_replay": "replay"}
+                   "lz4_replay": "replay_enqueue", "zstd_stitch": "stitch",
+                   "zstd_layout": "layout", "zstd_trim": "trim"}
+#: the wrapper timed for a recorded one that does not read its result back
+TIMED_AS = {"replay_enqueue": "replay"}
+#: the assembly's kernels (``kernels/assemble_torch.py``), whose plain
+#: versions take host tensors, and the arguments each writes in place (a
+#: position or a keyword): they are recorded as copies made before the call
+ASSEMBLY_WRITES = {"zstd_stitch": (10,), "zstd_layout": (9, "lits"), "zstd_trim": ()}
 
 
 def write_zstd_entry(corpus: bytes, device, extract) -> tuple:
@@ -1081,6 +1090,82 @@ def write_zstd_entry(corpus: bytes, device, extract) -> tuple:
     return buf, comp
 
 
+def _copy_written(name: str, args: tuple, kwargs: dict) -> tuple:
+    """``(args, kwargs)`` with a copy of each tensor the call writes in
+    place, so that they hold its inputs after the run."""
+    writes = ASSEMBLY_WRITES.get(name, ())
+    args = tuple(a.clone() if i in writes else a for i, a in enumerate(args))
+    return args, {k: v.clone() if k in writes else v for k, v in kwargs.items()}
+
+
+def _assembly_outputs(name: str, fn, args: tuple, kwargs: dict, device) -> list:
+    """``fn`` on copies of the recorded arguments on ``device``: its
+    results and the tensors it writes in place, on the host; of the
+    layout's segment tables the columns segments take (the kernel leaves
+    the others unwritten, the replay reads none of them)."""
+    move = (lambda t: t.to(device, copy=True) if isinstance(t, torch.Tensor) else t)
+    a, kw = [move(t) for t in args], {k: move(v) for k, v in kwargs.items()}
+    got = fn(*a, **kw)
+    got = list(got) if isinstance(got, tuple) else [got]
+    out = [t.cpu() for t in got + [a[w] if isinstance(w, int) else kw[w]
+                                   for w in ASSEMBLY_WRITES[name]]]
+    if name == "zstd_layout":
+        bases, ff = args[2].cpu(), args[1].cpu()
+        nseg = bases[ff[1:], 0] - bases[ff[:-1], 0]
+        taken = (torch.arange(kwargs["SB"])[None, :] < nseg[:, None]).reshape(-1)
+        out[0] = out[0][:, taken]
+    return out
+
+
+def phase_zstd_assembly(calls: dict, device, assemble_torch) -> dict:
+    """The assembly's three kernels on the inputs the first run of the zstd
+    extract path gave them, against their plain versions on the host:
+    every output, the record and the literal rows exactly; each kernel
+    timed over 10 launches, its plain version once on the host clock."""
+    plains = {"zstd_stitch": assemble_torch.stitch_plain,
+              "zstd_layout": assemble_torch.layout_plain,
+              "zstd_trim": lambda rows, off, state, rec, total:
+                  assemble_torch.trim_plain(rows, off, state, rec)}
+    res = {}
+    for name, plain in plains.items():
+        kernel = getattr(assemble_torch, EXTRACT_KERNELS[name])
+        args, kwargs = calls[name][0]
+        got = _assembly_outputs(name, kernel, args, kwargs, device)
+        torch.cuda.synchronize()
+        want = _assembly_outputs(name, plain, args, kwargs, torch.device("cpu"))
+        same = [t.shape for t in got] == [t.shape for t in want]
+        err = max_abs_err(got, want) if same else -1
+        if same and not err and not all(torch.equal(g, w) for g, w in zip(got, want)):
+            err = 1  # a difference the int32 view does not show
+        print(f"{name} on the zstd extract inputs: {'equal' if err == 0 else 'DIFFERENT'} "
+              f"to plain (max_abs_err {err}; {len(got)} outputs)")
+        if err:
+            raise AssertionError(f"{name} kernel != plain on the zstd extract inputs")
+        ms = cuda_ms(lambda: kernel(*args, **kwargs), 10)
+        host = [t.cpu() if isinstance(t, torch.Tensor) else t for t in args]
+        host_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
+        plain_ms = host_ms(lambda: plain(*host, **host_kw), 1)
+        ops = chain = 0
+        if name == "zstd_stitch":  # one CTA: a scan of 8 steps a tile of 256 blocks
+            nb = args[0].shape[0]
+            moved, ops, chain = tensor_bytes(args, got), 20.0 * nb, -(-nb // 256) * 8
+            what = f"{nb} blocks, {args[1].numel() - 1} frames"
+        elif name == "zstd_layout":  # the sequences in, the taken columns and runs out
+            runs = kwargs["runs"]
+            run_bytes = int(runs[:, 0].sum()) if runs.numel() else 0
+            moved = tensor_bytes(args[4:7]) + tensor_bytes(got[0]) + 2 * run_bytes
+            what = f"{args[4].numel()} sequences, {got[0].shape[1]} segments, " \
+                f"{runs.shape[0]} literal runs of {run_bytes} bytes"
+        else:  # each frame's bytes read from its row and written out
+            moved = 2 * kwargs["total"]
+            what = f"{args[1].numel() - 1} frames, {kwargs['total']} bytes"
+        b = bound(moved, ops, chain)
+        print(f"{name} (zstd extract): {what}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
+              f"(host), bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {moved} bytes)")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+    return res
+
+
 @contextlib.contextmanager
 def recording_kernels(modules: dict):
     """Wrap each kernel wrapper of the zstd extract path so that its
@@ -1092,7 +1177,7 @@ def recording_kernels(modules: dict):
         fn = getattr(mod, attr)
 
         def rec(*args, _fn=fn, _name=name, **kwargs):
-            calls.setdefault(_name, []).append((args, kwargs))
+            calls.setdefault(_name, []).append(_copy_written(_name, args, kwargs))
             return _fn(*args, **kwargs)
 
         setattr(mod, attr, rec)
@@ -1108,6 +1193,8 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
     """Record each kernel's inputs on a first run of the device path, then
     hold each kernel against its plain version on them and time both (each
     kernel 10 times, its plain version once)."""
+    for name in EXTRACT_KERNELS:
+        modules[name].reset_launches()
     with recording_kernels(modules) as calls:
         t0 = time.perf_counter()
         out = extract.decompress_zstd_device(comp, len(corpus), device=device)
@@ -1115,12 +1202,16 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
               f"{time.perf_counter() - t0:.3f} s")
     if out != corpus:
         raise AssertionError("zstd extract: the first device run does not give the corpus back")
-    res = {}
-    for name, attr in EXTRACT_KERNELS.items():
-        kernel, plain = getattr(modules[name], attr), getattr(modules[name], attr + "_plain")
-        if len(calls.get(name, ())) != 1:
+    for name in EXTRACT_KERNELS:
+        if len(calls.get(name, ())) != 1 or modules[name].LAUNCHES[name] != 1:
             raise AssertionError(f"zstd extract: {name} was called {len(calls.get(name, ()))} "
-                                 "times, not once")
+                                 f"times and launched {modules[name].LAUNCHES[name]}, not once")
+    res = phase_zstd_assembly(calls, device, modules["zstd_stitch"])
+    for name, attr in EXTRACT_KERNELS.items():
+        if name in ASSEMBLY_WRITES:
+            continue
+        attr = TIMED_AS.get(attr, attr)
+        kernel, plain = getattr(modules[name], attr), getattr(modules[name], attr + "_plain")
         args, kwargs = calls[name][0]
         got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
         torch.cuda.synchronize()
@@ -1154,13 +1245,6 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
             ops = 20.0 * args[0].numel()
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      **bound(tensor_bytes(args, got), ops, chain)}
-    # the assembly between the decode kernels and the replay is torch ops:
-    # it reads the three flat sequence tables and writes the replay's four
-    # (F, SB) segment tables
-    seg_tables = calls["lz4_replay"][0][0][1:5]
-    moved = 3 * tensor_bytes(calls["rep_apply"][0][0][0]) + tensor_bytes(seg_tables)
-    print(f"zstd_assemble (torch ops): segment tables {tuple(seg_tables[0].shape)}, "
-          f"{moved} bytes read and written, bound {bound(moved)['bound_ms']:.4f} ms (bytes)")
     return res
 
 
@@ -1702,7 +1786,8 @@ def main() -> int:
         return 1
     from zpack_tpu_torch.codecs import xxh3 as H
     from zpack_tpu_torch.codecs.lz4 import block as lz4block
-    from zpack_tpu_torch.kernels import _build, fse_torch, huffman_torch, lz4_torch, xxh3_torch
+    from zpack_tpu_torch.kernels import (_build, assemble_torch, fse_torch, huffman_torch,
+                                         lz4_torch, xxh3_torch)
     from zpack_tpu_torch.parallel import extract
     from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 
@@ -1746,7 +1831,8 @@ def main() -> int:
     z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor,
                             huffman_torch, fse_torch)
     modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch,
-               "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch}
+               "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch,
+               **dict.fromkeys(ASSEMBLY_WRITES, assemble_torch)}
     zbuf, zcomp = write_zstd_entry(corpus, device, extract)
     zk = phase_zstd_extract_kernels(zcomp, corpus, device, extract, modules)
     fc = phase_fse_cases(device, fse_torch)
@@ -1842,6 +1928,11 @@ def main() -> int:
          "plain_ms": zk["rep_totals"]["plain_ms"] + zk["rep_apply"]["plain_ms"],
          "bound_ms": zk["rep_totals"]["bound_ms"] + zk["rep_apply"]["bound_ms"],
          "bound_by": zk["rep_totals"]["bound_by"], "library_ms": None},
+        *({"name": name, "route": "cuda", "source": "zpack_tpu_torch/csrc/zstd_assemble.cu",
+           "replaces": replaces, "launches": zx_launches[name], **zk[name]}
+          for name, replaces in (("zstd_stitch", "zpack_tpu/parallel/extract.py:400"),
+                                 ("zstd_layout", "zpack_tpu/parallel/extract.py:599"),
+                                 ("zstd_trim", "zpack_tpu/parallel/extract.py:575"))),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -348,6 +348,7 @@ struct Walk {
     // pass 1
     std::vector<int64_t> frame_chk;   // the content checksum, or -1
     std::vector<int64_t> frame_lits;  // the literal bytes of each frame
+    std::vector<int64_t> frame_size;  // the declared content size, or -1
     std::vector<int64_t> blocks;      // kBlockCols a block
     std::vector<int64_t> streams;     // kStreamCols a Huffman stream
     std::vector<int64_t> stream_frame;
@@ -513,6 +514,15 @@ bool walk_literals(Walk& w) {
         static const size_t kFcs[4] = {0, 2, 4, 8};
         size_t fcs_len = fcs_flag == 0 && single ? 1 : kFcs[fcs_flag];
         if (n - pos < fcs_len) return false;
+        // the declared content size (frame.parse_frame_header), -1 where
+        // the frame declares none or more than an int64 holds
+        int64_t fcs = -1;
+        if (fcs_len) {
+            uint64_t v = 0;
+            for (size_t i = 0; i < fcs_len; i++) v |= (uint64_t)d[pos + i] << (8 * i);
+            if (fcs_len == 2) v += 256;
+            fcs = v > (uint64_t)INT64_MAX ? -1 : (int64_t)v;
+        }
         pos += fcs_len;
         // blocks
         int64_t frame = (int64_t)w.frame_chk.size();
@@ -560,6 +570,7 @@ bool walk_literals(Walk& w) {
         }
         w.frame_chk.push_back(chk);
         w.frame_lits.push_back(lp);
+        w.frame_size.push_back(fcs);
     }
     // the layout: frame j's literals fill row j of an (F, lit_row) table
     int64_t lb = 1;
@@ -673,6 +684,7 @@ struct ZwLiterals {
     const int64_t* streams;     // (n_streams, 7): huffman_torch.DECODE_COLS, offsets into the entry
     const int32_t* tables;      // (n_tables, 2048)
     const int64_t* runs;        // (n_runs, 4): length, destination, source in the entry, step
+    const int64_t* frame_size;  // (n_frames,): the declared content size, or -1
 };
 
 // What pass 2 found: fse_torch.build_decode_batch's arrays but the payload
@@ -713,7 +725,8 @@ void* zw_literals(const uint8_t* data, size_t n, ZwLiterals* out) {
                       w->blocks.data(),
                       w->streams.data(),
                       w->huf.data(),
-                      w->runs.data()};
+                      w->runs.data(),
+                      w->frame_size.data()};
     return w;
 }
 

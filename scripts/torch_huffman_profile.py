@@ -23,13 +23,14 @@ many of its CTAs are resident at once, then per variant and round the ms a
 launch and the ns a symbol of the longest stream.  Exits 1 if the first
 variant differs from the plain version.
 
-Last, the phase as ``decompress_zstd_device`` runs it after the Python
-walk (``walk_zstd``, where the native one is missing), 7 times, each step
-ended by a synchronisation: ``build_decode_batch`` (the host loop over the
-streams and the table packing), the pageable host-to-device copies of its
-arrays, the launch (the wrapper, its output zeroed), the read-back of
-``final`` and ``_scatter_runs`` (the raw literal runs); and the whole phase
-without the inner synchronisations.  Prints each step's median and range in
+Last, the Huffman decode of the Python walk's batch (``walk_zstd``,
+where the native one is missing), 7 times, each step ended by a
+synchronisation: ``build_decode_batch`` (the host loop over the streams and
+the table packing), the pageable host-to-device copies of its arrays, the
+launch (the wrapper, its output zeroed) and the read-back of ``final``;
+and the whole decoder call without the inner synchronisations (the zstd
+route itself stages its arrays in one pinned copy and reads ``final`` with
+the rest of its record).  Prints each step's median and range in
 ms.
 """
 
@@ -137,9 +138,7 @@ def split_phase(comp: bytes, dev) -> None:
         t = lap("launch (wrapper, output zeroed)", t)
         if (final.cpu().numpy() != 0).any():
             raise AssertionError("huffman stream not fully consumed")
-        t = lap("read-back of final", t)
-        extract._scatter_runs(lit, *extract._runs(raw_parts))
-        lap("_scatter_runs (raw literal runs)", t)
+        lap("read-back of final", t)
         lap("sum of the steps", t0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -147,8 +146,7 @@ def split_phase(comp: bytes, dev) -> None:
             w.streams, w.tables, w.n_syms, stream_dst, n_out=n_out)
         if (final != 0).any():
             raise AssertionError("huffman stream not fully consumed")
-        extract._scatter_runs(lit, *extract._runs(raw_parts))
-        lap("the phase as the Python walk's route runs it", t0)
+        lap("the decoder as the Python walk's batch runs it", t0)
     print(f"torch.huffman_decode split ({len(w.streams)} streams, {len(raw_parts)} raw runs, "
           f"{tensor_mb(batch)} MB to the device; {SPLIT_REPS} runs, median [min, max] ms):")
     for name, ts in steps.items():

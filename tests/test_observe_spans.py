@@ -14,10 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+import zstandard
+
 import zpack_tpu_torch as zp
 from zpack_tpu_torch import codecs, engine
+from zpack_tpu_torch.codecs import zstd as port_zstd
 from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
+from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.extract import decompress_lz4f_batched
+from zpack_tpu_torch.parallel.mesh import make_mesh
 from zpack_tpu_torch.utils import observe
 from zpack_tpu_torch.utils.observe import Metrics, metrics
 
@@ -166,6 +171,26 @@ def round_trip():
         r = zp.Reader.from_memory(w.buffer)
         for name, data, _ in zstd_files:
             assert r.read_file(name) == data
+        # a read whose decoders shard over two devices, and an entry whose
+        # frame declares no size (the zstd route's exact path)
+        device_route = extract.decompress_zstd_device
+        extract.decompress_zstd_device = lambda *a, **k: device_route(
+            *a, **k, mesh=make_mesh(["cpu", "cpu"]))
+        try:
+            assert r.read_file(zstd_files[0][0]) == zstd_files[0][1]
+        finally:
+            extract.decompress_zstd_device = device_route
+        compress = port_zstd.ZstdCodec.compress
+        port_zstd.ZstdCodec.compress = lambda self, data, level=3, **k: zstandard.ZstdCompressor(
+            level=level, write_content_size=False).compress(data)
+        try:
+            w = zp.Writer.to_heap()
+            w.write_archive(zstd_files)
+        finally:
+            port_zstd.ZstdCodec.compress = compress
+        r = zp.Reader.from_memory(w.buffer)
+        for name, data, _ in zstd_files:
+            assert r.read_file(name) == data
         text = zstd_files[0][1][:200_000]
         frame = lz4frame.compress_frame(text, 1, block_indep=True, content_checksum=True)
         assert decompress_lz4f_batched(frame, len(text), device="cpu") == text
@@ -182,7 +207,8 @@ def test_popping_the_wrapper_restores_phase(round_trip):
 
 def test_wrapper_on_the_instance_sees_every_span(round_trip):
     seen, snap = round_trip
-    assert seen == {k: v["calls"] for k, v in snap.items()}
+    counts = {"torch.zstd_resize"}  # metrics.count, no span
+    assert seen == {k: v["calls"] for k, v in snap.items() if k not in counts}
 
 
 PARENTS = {
@@ -219,9 +245,10 @@ PARENTS = {
     "torch.fse_decode": {"zstd.decompress"},
     "torch.fse_decode.wait": {"torch.fse_decode"},
     "torch.rep_resolve": {"zstd.decompress"},
-    "torch.rep_resolve.wait": {"torch.rep_resolve"},
+    "torch.zstd_stage": {"zstd.decompress"},
     "torch.zstd_assemble": {"zstd.decompress"},
     "torch.zstd_assemble.wait": {"torch.zstd_assemble"},
+    "torch.zstd_resize": {"torch.zstd_assemble"},
     "torch.replay": {"zstd.decompress"},
     "torch.replay.wait": {"torch.replay"},
     "torch.zstd_checksum": {"zstd.decompress"},
@@ -391,7 +418,7 @@ def _counts_launch_of(stmt, key) -> bool:
 
 
 KERNEL_MODULES = ["kernels/huffman_torch.py", "kernels/fse_torch.py", "kernels/lz4_torch.py",
-                  "kernels/xxh3_torch.py"]
+                  "kernels/xxh3_torch.py", "kernels/assemble_torch.py"]
 
 
 @pytest.mark.parametrize("path", KERNEL_MODULES)

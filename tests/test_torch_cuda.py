@@ -23,12 +23,13 @@ from zpack_tpu_torch.writer import CompressOptions, Writer
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
 from zpack_tpu_torch.errors import DecompressError
-from zpack_tpu_torch.kernels import (fse_cases, fse_encode_cases, fse_torch, huffman_cases,
-                                     huffman_encode_cases, huffman_torch, lz4_parse_cases,
-                                     lz4_torch, replay_cases, tokenize_cases, xxh3_cases,
-                                     xxh3_torch)
+from zpack_tpu_torch.kernels import (assemble_cases, assemble_torch, fse_cases, fse_encode_cases,
+                                     fse_torch, huffman_cases, huffman_encode_cases, huffman_torch,
+                                     lz4_parse_cases, lz4_torch, replay_cases, tokenize_cases,
+                                     xxh3_cases, xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
+from zpack_tpu_torch.utils.observe import metrics
 
 torch.set_num_threads(1)
 
@@ -813,6 +814,123 @@ def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):
     e = r.get_file_entry("z.bin")
     comp = bytes(w.buffer[e.offset:e.offset + e.comp_size])
     assert extract.decompress_zstd_batched(comp, len(data), device=cuda) == data
+
+
+@pytest.mark.parametrize("name", sorted(assemble_cases.cases()))
+def test_assembly_kernels_match_plain_on_cases(cuda, name):
+    """stitch, layout and trim against their plain versions: every output,
+    the record, each frame's segments, the literal rows; the trimmed bytes
+    where every check passed (past a failed check the replay's input is
+    garbage, on which the kernel and the plain replay differ)."""
+    case = assemble_cases.cases()[name]
+    want = assemble_cases.assemble(case, "cpu")
+    assemble_torch.reset_launches()
+    got = assemble_cases.assemble(case, cuda)
+    torch.cuda.synchronize()
+    assert assemble_torch.LAUNCHES["zstd_stitch"] == 1
+    assert assemble_torch.LAUNCHES["zstd_trim"] == 1
+    for k in ("entry", "bases", "frame_out", "rec", "lits"):
+        assert np.array_equal(got[k], want[k]), k
+    for g, w in zip(got["segs"], want["segs"]):
+        assert np.array_equal(g, w)
+    if assemble_torch.first_error(want["rec"]) is None:
+        assert np.array_equal(got["out"], want["out"])
+
+
+def _strip_size(frame: bytes) -> bytes:
+    """A frame of the port's encoder above 256 KiB (a window descriptor and
+    a 4-byte size) without its declared size."""
+    assert frame[4] == 0x80
+    return frame[:4] + b"\x00" + frame[5:6] + frame[10:]
+
+
+def _waits() -> tuple:
+    snap = metrics.snapshot()
+    return (sum(v["calls"] for k, v in snap.items() if k.endswith(".wait")),
+            snap.get("torch.zstd_resize", {}).get("calls", 0))
+
+
+def test_zstd_route_waits_once_and_resizes_without_a_size(cuda):
+    """One wait a read where every frame declares its size, two and a
+    resize where one does not or declares a wrong one; the bytes and the
+    errors of the CPU route in each case."""
+    data = _text(600_000, 61)
+    frame = native.zstd_compress(data, 3)
+    cases = {"declared": (frame, (1, 0)), "no size": (_strip_size(frame), (2, 1)),
+             "wrong size": (frame[:6] + (len(data) + 5).to_bytes(4, "little") + frame[10:],
+                            (2, 1)),
+             "two frames": (frame + native.zstd_compress(data[:5000], 3), (1, 0))}
+    for name, (comp, counts) in cases.items():
+        want = extract.decompress_zstd_device(comp, device="cpu")
+        metrics.reset()
+        assert extract.decompress_zstd_device(comp, device=cuda) == want, name
+        assert _waits() == counts, name
+    bad = bytearray(_strip_size(frame))
+    bad[len(bad) // 2] ^= 0x5A
+    assert _route_outcome(bytes(bad), len(data), cuda) == \
+        _route_outcome(bytes(bad), len(data), "cpu")
+
+
+def _route_outcome(data: bytes, max_out: int, dev):
+    """The zstd route's bytes on ``dev``, or its error's type and message."""
+    try:
+        return extract.decompress_zstd_device(data, max_out, device=dev)
+    except (DecompressError, RuntimeError) as e:
+        return type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_zstd_route_gives_the_cpus_outcome_on_the_flip_sweeps(cuda, part):
+    """The corruption sweeps (``assemble_cases.flips``) of a frame of the
+    port's encoder, a quarter a case: each of the 304 inputs gives on the
+    card the bytes or the first error it gives on the CPU, and the card
+    reports no fault when synchronised after it (every kernel past a
+    failed check runs on what the failed one left)."""
+    rng = np.random.default_rng(64)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8)) for _ in range(200)]
+    data = b" ".join(words[i] for i in rng.integers(0, 200, 7_500))[:30_000]
+    frame = native.zstd_compress(data, 3)
+    for k, bad in enumerate(assemble_cases.flips(frame)[part::4]):
+        want = _route_outcome(bad, len(data), "cpu")
+        got = _route_outcome(bad, len(data), cuda)
+        torch.cuda.synchronize()
+        assert got == want, (part + 4 * k, got if isinstance(got, tuple) else len(got))
+
+
+def test_zstd_route_stages_back_to_back_reads_apart(cuda):
+    """Two uploads through the staging while the stream is held by a long
+    kernel: the second's host buffer is not the first's while the first
+    copy is in flight, and each lands whole."""
+    a = {"x": np.arange(300_000, dtype=np.int64), "y": np.frombuffer(b"first" * 999, np.uint8)}
+    b = {"x": -np.arange(300_000, dtype=np.int64), "y": np.frombuffer(b"other" * 999, np.uint8)}
+    torch.cuda._sleep(200_000_000)  # holds the stream some 100 ms
+    da = extract.stage(a, cuda)
+    db = extract.stage(b, cuda)
+    torch.cuda.synchronize()
+    for d, h in ((da, a), (db, b)):
+        for k in h:
+            assert np.array_equal(d[k].cpu().numpy(), h[k]), k
+    assert da["x"].data_ptr() != db["x"].data_ptr()
+
+
+def test_zstd_read_on_cuda_launches_the_assembly_and_copies_nothing_pageable(cuda):
+    """A read of the Silesia cell's shape: the three assembly kernels, one
+    wait, and every copy between host and card from or to pinned memory."""
+    rng = np.random.default_rng(62)
+    data = _text(3 << 20, 63) + rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes()
+    comp = native.zstd_compress(data, 3)
+    assert extract.decompress_zstd_device(comp, len(data), device=cuda) == data
+    assemble_torch.reset_launches()
+    metrics.reset()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert extract.decompress_zstd_device(comp, len(data), device=cuda) == data
+        torch.cuda.synchronize()
+    assert assemble_torch.LAUNCHES == {"zstd_stitch": 1, "zstd_layout": 1, "zstd_trim": 1}
+    assert _waits() == (1, 0)
+    names = [e.name for e in prof.events()]
+    assert not [n for n in names if "Pageable" in n], sorted(set(names))
 
 
 # ---------------------------------------------------------------------------

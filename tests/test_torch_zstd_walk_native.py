@@ -21,6 +21,7 @@ from zpack_tpu.parallel import extract as jax_extract
 from zpack_tpu_torch import native
 from zpack_tpu_torch.codecs.zstd import seq as zseq
 from zpack_tpu_torch.errors import DecompressError
+from zpack_tpu_torch.kernels import assemble_cases
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.utils.observe import metrics
 
@@ -71,9 +72,11 @@ def _assert_same(data: bytes) -> None:
     assert py is not None and nat is not None
     (pp, ph, pf), (np_, nh, nf) = py, nat
     assert np_.native and not pp.native
-    for field in ("frame_chk", "blk_frame", "blk_lits", "blk_slot", "lit_row", "n_streams",
-                  "n_syms", "n_items", "n_seqs"):
+    for field in ("frame_chk", "lit_row", "n_streams", "n_syms", "n_items", "n_seqs"):
         assert getattr(np_, field) == getattr(pp, field), field
+    for field in ("blocks", "frame_size"):
+        a, b = getattr(np_, field), getattr(pp, field)
+        assert a.dtype == b.dtype == np.int64 and np.array_equal(a, b), field
     # the runs: the same lengths and destinations, and the same bytes, read
     # from the entry or from the Python walk's copy of them
     assert np_.run_source is None and np_.runs.dtype == pp.runs.dtype == np.int64
@@ -202,17 +205,7 @@ def _corrupted():
     positions and at each of the first 64 bytes (the frame, block and
     literals headers and the Huffman tree)."""
     blob = _corpora()["words"][:30000]
-    frame = zstandard.ZstdCompressor(level=3).compress(blob)
-    out = []
-    spread = np.linspace(4, len(frame) - 1, 32).astype(int).tolist()
-    for positions, masks in ((np.linspace(4, len(frame) - 1, 16).astype(int).tolist(), (0x5A,)),
-                             (spread + list(range(4, 68)), (0x01, 0x80, 0xFF))):
-        for p in positions:
-            for m in masks:
-                bad = bytearray(frame)
-                bad[p] ^= m
-                out.append(bytes(bad))
-    return blob, out
+    return blob, assemble_cases.flips(zstandard.ZstdCompressor(level=3).compress(blob))
 
 
 def test_corrupted_inputs_accepted_exactly_where_python_accepts():

@@ -155,6 +155,14 @@ def lib() -> ctypes.CDLL:
             cdll.zp_rep_totals.argtypes = [p, p, p, p, i, p, p, p, p]
             cdll.zp_rep_apply.restype = i
             cdll.zp_rep_apply.argtypes = [p, p, p, p, i, p, p, p]
+            cdll.zp_zstd_stitch.restype = i
+            cdll.zp_zstd_stitch.argtypes = [p, i, p, i, p, p, p, p, i, p, i, p, p, p, i64, i64,
+                                            p, p, p, p, p]
+            cdll.zp_zstd_layout.restype = i
+            cdll.zp_zstd_layout.argtypes = [p, i, p, p, p, p, p, p, p, p, i64, p, i64, p, i, p,
+                                            p, p, p]
+            cdll.zp_zstd_trim.restype = i
+            cdll.zp_zstd_trim.argtypes = [p, i64, p, i, i64, p, p, i, p, p]
             cdll.zp_error_string.restype = ctypes.c_char_p
             cdll.zp_error_string.argtypes = [i]
             _LIB = cdll

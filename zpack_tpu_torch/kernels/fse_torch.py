@@ -410,7 +410,7 @@ def _check_decode(payload, rows, seq_off, al, tables) -> None:
         raise ValueError(f"tables must be (B, 3, {TABLE}) int32")
 
 
-def decode_seq_streams_plain(payload, rows, seq_off, al, tables):
+def decode_seq_streams_plain(payload, rows, seq_off, al, tables, *, shape=None):
     """Batched sequence-section bitstream decode in plain PyTorch: a Python
     loop over the steps, vectorized over blocks, like the ``lax.scan`` of
     ``fse_jax.decode_seq_streams``.
@@ -426,7 +426,8 @@ def decode_seq_streams_plain(payload, rows, seq_off, al, tables):
 
     Returns ``(lls, mls, ovs)``, each (seq_off[-1],) int32 (``ovs`` the raw
     offset values), ``pos_f`` (B,) int32, 0 for a fully consumed stream,
-    and ``err`` (B,) bool, set where an offset code exceeds 30."""
+    and ``err`` (B,) bool, set where an offset code exceeds 30.  ``shape``
+    is the wrapper's, unused here."""
     _check_decode(payload, rows, seq_off, al, tables)
     dev = payload.device
     i64 = torch.int64
@@ -499,7 +500,7 @@ def decode_seq_streams_plain(payload, rows, seq_off, al, tables):
     return (*(v.T[valid].to(torch.int32) for v in (ll_v, ml_v, ov)), pos.to(torch.int32), err)
 
 
-def decode_seq_streams(payload, rows, seq_off, al, tables):
+def decode_seq_streams(payload, rows, seq_off, al, tables, *, shape=None):
     """:func:`decode_seq_streams_plain` on the CPU; on a GPU, the CUDA
     decoder (``csrc/fse_decode.cu``).  Same inputs, same outputs, for rows
     whose sentinel lies in their bytes (``bits_left0 < 8 * n_bytes``, as
@@ -511,7 +512,12 @@ def decode_seq_streams(payload, rows, seq_off, al, tables):
     memory, sized from the batch's longest row, and reads a longer one from
     global memory; it keeps one record of 8 bytes a sequence in a scratch.
     Its bit positions are int32: a block of ``2**23`` sequences or more, or
-    a row of ``2**26`` bytes or more, raises ValueError."""
+    a row of ``2**26`` bytes or more, raises ValueError.
+
+    ``shape``, ``(seq_off[-1], the longest row's bytes, the most sequences
+    of a block)`` where the host knows them (:func:`decode_shape`), sizes
+    the outputs and the stage without a read-back; without it the wrapper
+    reads them back, one device-to-host copy."""
     args = (payload, rows, seq_off, al, tables)
     if payload.device.type == "cpu":
         return decode_seq_streams_plain(*args)
@@ -523,11 +529,14 @@ def decode_seq_streams(payload, rows, seq_off, al, tables):
             raise ValueError(f"{name} must be contiguous on {payload.device}")
     B = rows.shape[0]
     i32, dev = torch.int32, payload.device
-    with metrics.phase("torch.fse_decode.wait", 32 if B else 8):
-        total, widest, longest = int(seq_off[-1]), 0, 0
-        if B:  # one read-back: the output size, the stage size, the longest chain
-            total, widest, longest = torch.stack(
-                [seq_off[-1], rows[:, 1].max(), (seq_off[1:] - seq_off[:-1]).max()]).tolist()
+    if shape is not None:
+        total, widest, longest = shape
+    else:
+        with metrics.phase("torch.fse_decode.wait", 32 if B else 8):
+            total, widest, longest = int(seq_off[-1]), 0, 0
+            if B:  # one read-back: the output size, the stage size, the longest chain
+                total, widest, longest = torch.stack(
+                    [seq_off[-1], rows[:, 1].max(), (seq_off[1:] - seq_off[:-1]).max()]).tolist()
     if longest >= 1 << 23 or widest >= 1 << 26:
         raise ValueError("a block of 2**23 sequences or a row of 2**26 bytes is beyond the "
                          "kernel's int32 bit positions")
@@ -548,6 +557,13 @@ def decode_seq_streams(payload, rows, seq_off, al, tables):
     LAUNCHES["fse_decode"] += 1
     metrics.count("launch.fse_decode")
     return lls, mls, ovs, pos_f, err
+
+
+def decode_shape(rows: np.ndarray, seq_off: np.ndarray) -> tuple[int, int, int]:
+    """:func:`decode_seq_streams`' ``shape`` of a batch's host arrays."""
+    if not len(rows):
+        return int(seq_off[-1]), 0, 0
+    return int(seq_off[-1]), int(rows[:, 1].max()), int(np.diff(seq_off).max())
 
 
 def build_decode_batch(items: list[tuple]) -> dict:

@@ -540,7 +540,8 @@ class TorchHuffmanDecoder:
         # back to back from 0; a malformed row keeps its verdict (an
         # invalid table) and writes nothing
         n = np.where(bad, 0, np.maximum(rows[:, 3], 0))
-        tables = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
+        with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
+            tables = {d: torch.from_numpy(batch["tables"]).to(d) for d in self.mesh.distinct()}
         launched = []
         for (lo, hi), dev in zip(row_ranges(len(rows), self.mesh.size), self.mesh.devices):
             if lo == hi:
@@ -552,10 +553,10 @@ class TorchHuffmanDecoder:
             part[:, 3] = n[lo:hi]
             part[:, 4] = np.cumsum(n[lo:hi]) - n[lo:hi]
             part[~ok, 5] = -1
-            out, final = decode_streams(
-                torch.as_tensor(payload[p0:p1]).to(dev), torch.from_numpy(part).to(dev),
-                tables[dev], n_out=int(n[lo:hi].sum()),
-                widest=int(part[ok, 1].max(initial=0)))
+            with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
+                args = torch.as_tensor(payload[p0:p1]).to(dev), torch.from_numpy(part).to(dev)
+            out, final = decode_streams(*args, tables[dev], n_out=int(n[lo:hi].sum()),
+                                        widest=int(part[ok, 1].max(initial=0)))
             launched.append((lo, hi, out, final))
         dev0 = self.device
         syms = torch.zeros(n_out, dtype=torch.uint8, device=dev0)
@@ -569,7 +570,8 @@ class TorchHuffmanDecoder:
                 + torch.arange(out.numel(), device=dev0)
             keep = (dst >= 0) & (dst < n_out)
             syms[dst[keep]] = out.to(dev0)[keep]
-        return syms, np.concatenate([f.cpu().numpy() for _, _, _, f in launched])
+        with metrics.phase("torch.huffman_decode.wait", sum(f.nbytes for *_, f in launched)):
+            return syms, np.concatenate([f.cpu().numpy() for _, _, _, f in launched])
 
     def decode_batch(self, payloads: list[bytes], tables, n_symbols: list[int]) -> list[np.ndarray]:
         """payloads[i]: one backward-read huffman stream; tables[i]:

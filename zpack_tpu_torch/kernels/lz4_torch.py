@@ -823,6 +823,11 @@ REPLAY_TILE = 1024
 REPLAY_STATE = 40
 
 
+#: what :func:`replay` raises when the kernels leave a position unresolved
+REPLAY_UNRESOLVED = ("lz4_replay: a copy chain was left unresolved; the sequence tables are "
+                     "inconsistent and the output is incomplete")
+
+
 def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
            *, n_out: int) -> torch.Tensor:
     """:func:`replay_plain` on the CPU; on a GPU, the CUDA sequence replay
@@ -835,6 +840,24 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
     args = (lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len)
     if lit_bytes.device.type == "cpu":
         return replay_plain(*args, n_out=n_out)
+    out, state = replay_enqueue(*args, n_out=n_out)
+    if state is not None:
+        with metrics.phase("torch.replay.wait", 4):
+            failed = int(state[0])
+        if failed:
+            raise RuntimeError(REPLAY_UNRESOLVED)
+    return out
+
+
+def replay_enqueue(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
+                   *, n_out: int):
+    """:func:`replay` without its read-back: returns ``(out, state)``, the
+    rows and the kernels' state, whose word 0 is the error word (nonzero:
+    a position left unresolved), unread; ``state`` is None where nothing
+    was launched.  On the CPU, :func:`replay_plain` and a zero state."""
+    args = (lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len)
+    if lit_bytes.device.type == "cpu":
+        return replay_plain(*args, n_out=n_out), torch.zeros(REPLAY_STATE, dtype=torch.int32)
     if lit_bytes.device.type != "cuda":
         raise ValueError("replay takes CPU or CUDA tensors")
     bp, S = seg_start.shape
@@ -850,7 +873,7 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
     dev = lit_bytes.device
     out = torch.empty((bp, n_out), dtype=torch.uint8, device=dev)
     if bp == 0 or n_out == 0:
-        return out
+        return out, None
     fstride = -(-n_out // 4) * 4
     tiles = bp * -(-fstride // REPLAY_TILE)
     if tiles >= 2**31 or fstride >= 2**31:
@@ -870,12 +893,7 @@ def replay(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_len,
     _build.check(rc, "lz4_replay")
     LAUNCHES["lz4_replay"] += 1
     metrics.count("launch.lz4_replay")
-    with metrics.phase("torch.replay.wait", 4):
-        failed = int(state[0])
-    if failed:
-        raise RuntimeError("lz4_replay: a copy chain was left unresolved; the sequence "
-                           "tables are inconsistent and the output is incomplete")
-    return out
+    return out, state
 
 
 class DeviceLZ4Replayer:

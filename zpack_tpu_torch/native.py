@@ -611,7 +611,7 @@ class _ZwLiterals(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_int64) for k in ("n_frames", "n_blocks", "n_streams", "n_tables",
                                                 "n_runs", "lit_row")]
                 + [(k, ctypes.c_void_p) for k in ("frame_chk", "blocks", "streams",
-                                                   "tables", "runs")])
+                                                   "tables", "runs", "frame_size")])
 
 
 class _ZwSequences(ctypes.Structure):
@@ -662,8 +662,9 @@ class ZstdWalk:
         7) (``huffman_torch.DECODE_COLS``, offsets into the entry, each
         destination placed), ``tables`` (T, 2048) int32, ``runs`` (R, 4),
         the raw and RLE literal runs (length, destination, source in the
-        entry, step: 1 raw, 0 one byte repeated), and ``lit_row``, the
-        bytes of a frame's literal row."""
+        entry, step: 1 raw, 0 one byte repeated), ``lit_row``, the bytes of
+        a frame's literal row, and ``frame_size`` (F,), each frame's
+        declared content size (-1 for none)."""
         out = _ZwLiterals()
         self._handle = self._lib.zw_literals(self._data, len(self._data), ctypes.byref(out))
         if not self._handle:
@@ -675,7 +676,8 @@ class ZstdWalk:
                 "streams": _copy_out(out.streams, i64, (out.n_streams, 7)),
                 "tables": _copy_out(out.tables, np.int32, (out.n_tables, 2048)),
                 "runs": _copy_out(out.runs, i64, (out.n_runs, 4)),
-                "lit_row": int(out.lit_row)}
+                "lit_row": int(out.lit_row),
+                "frame_size": _copy_out(out.frame_size, i64, out.n_frames)}
 
     def sequences(self) -> dict | None:
         """Sequences sections and FSE tables, after :meth:`literals`:

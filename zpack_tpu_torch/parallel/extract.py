@@ -35,7 +35,7 @@ from ..codecs.zstd import frame as zframe, seq as zseq
 from ..errors import DecompressError
 from ..utils.observe import metrics
 
-from ..kernels import fse_torch, huffman_torch, lz4_torch
+from ..kernels import assemble_torch, fse_torch, huffman_torch, lz4_torch
 from ..kernels.huffman_torch import TorchHuffmanDecoder
 from ..kernels.lz4_torch import DeviceLZ4Replayer
 
@@ -321,7 +321,7 @@ def _literal_layout(w: ZstdWalk):
 
 
 def _runs(parts: list[tuple]) -> tuple:
-    """Byte runs ``(bytes, flat destination)`` as :func:`_scatter_runs`
+    """Byte runs ``(bytes, flat destination)`` as the assembly's layout
     takes them: the runs back to back, and (length, destination, start,
     step 1) a run."""
     lens = np.array([len(p) for p, _ in parts], dtype=np.int64)
@@ -330,39 +330,19 @@ def _runs(parts: list[tuple]) -> tuple:
     return np.frombuffer(bytearray(b"".join(p for p, _ in parts)), dtype=np.uint8), runs
 
 
-def _scatter_runs(dst: torch.Tensor, source, runs: np.ndarray) -> None:
-    """Write literal runs into the flat ``dst`` (counterpart of
-    ``extract._scatter_flat_u8``): run ``(length, destination, start,
-    step)`` writes ``source[start + k * step]`` to ``destination + k`` for
-    ``k`` below its length (step 1 a raw run, 0 one byte repeated).
-    ``source`` is a uint8 array or tensor, on the device or not.  One
-    upload of the runs, one gather, one scatter.  The runs are exact, so no
-    lane is padding."""
-    if not len(runs):
-        return
-    dev, total = dst.device, int(runs[:, 0].sum())
-    with metrics.phase("torch.huffman_decode.wait"):  # blocking uploads
-        runs_d, src = torch.from_numpy(runs).to(dev), torch.as_tensor(source).to(dev)
-    lens = runs_d[:, 0]
-    run_of = torch.repeat_interleave(torch.arange(len(runs), device=dev), lens, output_size=total)
-    k = torch.arange(total, device=dev) - (torch.cumsum(lens, 0) - lens)[run_of]
-    dst[runs_d[run_of, 1] + k] = src[runs_d[run_of, 2] + k * runs_d[run_of, 3]]
-
-
 class ZstdPlan(NamedTuple):
     """What the device route needs of an entry's walk, from either walk."""
     frame_chk: list       # each frame's content checksum, or None
-    blk_frame: list       # each block's frame
-    blk_lits: list        # each block's literal bytes
-    blk_slot: list        # each block's sequence item, or -1
+    frame_size: np.ndarray  # (F,) int64: each frame's declared content size, or -1
+    blocks: np.ndarray    # (NB, 3) int64: each block's frame, literal bytes, sequence item or -1
     lit_row: int          # LB: frame j's literals fill row j of an (F, LB) table
     n_streams: int        # Huffman streams
     n_syms: int           # their symbols
     #: the Huffman batch (``huffman_torch.build_decode_batch``'s arrays),
-    #: given the entry on the device where the batch points into it
+    #: given the entry where the batch points into it (None: "the entry")
     huffman: Callable
-    #: the raw and RLE literal runs (:func:`_scatter_runs`), and the bytes
-    #: they are read from (None: the entry)
+    #: the raw and RLE literal runs (length, destination, source, step), and
+    #: the bytes they are read from (None: the entry)
     runs: np.ndarray
     run_source: np.ndarray | None
     n_items: int          # blocks with sequences
@@ -373,19 +353,20 @@ class ZstdPlan(NamedTuple):
 
 def _python_plan(data: bytes) -> ZstdPlan:
     """The plan of :func:`walk_zstd` and :func:`_literal_layout`; the
-    batches are built when asked for, where the decoders need them, so
-    their errors keep their order."""
+    batches are built when asked for, so their errors can keep their
+    order."""
     w = walk_zstd(data)
     with metrics.phase("torch.zstd_walk.layout", len(w.streams)):
         LB, stream_dst, raw_parts = _literal_layout(w)
-        blocks = [(j, len(b.lits[1]) if b.lits[0] == "raw" else b.lits[3],
-                   -1 if b.slot is None else b.slot)
-                  for j, (_, bl, _) in enumerate(w.frames) for b in bl]
-        blk_frame, blk_lits, blk_slot = (list(c) for c in zip(*blocks)) if blocks \
-            else ([], [], [])
+        blocks = np.array([(j, len(b.lits[1]) if b.lits[0] == "raw" else b.lits[3],
+                            -1 if b.slot is None else b.slot)
+                           for j, (_, bl, _) in enumerate(w.frames) for b in bl],
+                          dtype=np.int64).reshape(-1, 3)
         run_source, runs = _runs(raw_parts)
+        size = [-1 if h.content_size is None or h.content_size >= 2**63 else h.content_size
+                for h, _, _ in w.frames]
         return ZstdPlan(
-            [chk for _, _, chk in w.frames], blk_frame, blk_lits, blk_slot, LB,
+            [chk for _, _, chk in w.frames], np.array(size, dtype=np.int64), blocks, LB,
             len(w.streams), sum(w.n_syms),
             lambda entry: huffman_torch.build_decode_batch(w.streams, w.tables, w.n_syms,
                                                            stream_dst),
@@ -411,11 +392,10 @@ def _native_plan(lib, data: bytes) -> ZstdPlan | None:
                "widest": int(streams[:, 1].max(initial=0))}
         fse = {k: seqs[k] for k in ("rows", "seq_off", "al", "tables")}
         return ZstdPlan(
-            [None if c < 0 else c for c in lits["frame_chk"].tolist()],
-            blocks[:, 0].tolist(), blocks[:, 4].tolist(), seqs["slots"].tolist(),
+            [None if c < 0 else c for c in lits["frame_chk"].tolist()], lits["frame_size"],
+            np.stack([blocks[:, 0], blocks[:, 4], seqs["slots"]], axis=1),
             lits["lit_row"], len(streams), int(streams[:, 3].sum()),
-            lambda entry: {**huf, "payload": entry},
-            lits["runs"], None, len(fse["rows"]),
+            lambda entry: {**huf, "payload": entry}, lits["runs"], None, len(fse["rows"]),
             int(fse["seq_off"][-1]), lambda entry: {**fse, "payload": entry}, True)
 
 
@@ -428,167 +408,270 @@ def zstd_plan(data: bytes) -> ZstdPlan:
     return _python_plan(data) if plan is None else plan
 
 
+#: bytes between the arrays of one staged upload
+STAGE_ALIGN = 256
+
+
+def stage(arrays: dict, device) -> dict:
+    """The host arrays ``arrays`` (name: numpy array or bytes) on
+    ``device`` as tensors of their dtypes and shapes.  On a GPU they are
+    packed, each at a multiple of :data:`STAGE_ALIGN` bytes, into one
+    pinned buffer and sent up in one non-blocking copy; each tensor is a
+    view of the one device buffer.  The pinned buffer comes from PyTorch's
+    caching host allocator, which hands it out again only once the copy has
+    landed, so a later call never overwrites an upload in flight.  On the
+    CPU each is its array, copied where numpy holds it read-only."""
+    arrays = {k: np.frombuffer(v, np.uint8) if isinstance(v, (bytes, bytearray)) else v
+              for k, v in arrays.items()}
+    if device.type == "cpu":
+        return {k: torch.from_numpy(a if a.flags.writeable else a.copy())
+                for k, a in arrays.items()}
+    places, pos = {}, 0
+    for k, a in arrays.items():
+        places[k] = pos
+        pos += -(-a.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+    host = torch.empty(max(pos, 1), dtype=torch.uint8, pin_memory=True)
+    view = host.numpy()
+    for k, a in arrays.items():
+        view[places[k]:places[k] + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    return {k: dev[places[k]:places[k] + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+            for k, a in arrays.items()}
+
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64, np.dtype(np.bool_): torch.bool}
+
+
+def predicted_sizes(plan: ZstdPlan, max_out: int | None) -> np.ndarray | None:
+    """Each frame's output size as its header declares it, where every
+    frame declares one its blocks can hold (raw and RLE blocks and blocks
+    of literals alone their bytes, a block with sequences 128 KiB) and the
+    frames fit ``max_out``; else None, and the read takes the exact path,
+    which reads the sizes back before the replay."""
+    F, blk = len(plan.frame_chk), plan.blocks
+    if not F or (plan.frame_size < 0).any():
+        return None
+    room = np.bincount(blk[:, 0], np.where(blk[:, 2] < 0, blk[:, 1], assemble_torch.MAX_BLOCK),
+                       minlength=F)
+    if (plan.frame_size > room).any():
+        return None
+    if max_out is not None and int(plan.frame_size.sum()) > max_out:
+        return None
+    return plan.frame_size
+
+
+def _frame_offsets(sizes: np.ndarray) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+
+def _read_back(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host: on a GPU one copy into pinned memory, which waits
+    for the card; on the CPU the tensor's own memory."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+
+
 def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
                            mesh=None) -> bytes:
     """Decompress concatenated zstd frames with all entropy decoding and
-    sequence execution on ``device`` (``extract.decompress_zstd_device``):
+    sequence execution on ``device`` (``extract.decompress_zstd_device``),
+    waiting on the device once:
 
-    1. host structural walk and tables (:func:`zstd_plan`);
-    2. every Huffman literal stream in one launch, each written straight to
-       its place in its frame's literal row; raw literal runs scattered in;
-    3. every FSE sequence section in one launch;
-    4. repeat offsets: per-block totals on the device, the entry states
-       stitched on the host frame by frame, then the offsets resolved;
-    5. assembly with torch ops: each frame's segments (sequences, plus the
-       literal tails and literal-only blocks) in one (F, SB) table, their
-       prefix sums, and the check that no match reaches before its frame;
-    6. one replay row per frame (``lz4_torch.replay``), then the content
-       checksums on the host.
+    1. host structural walk and tables (:func:`zstd_plan`), and what the
+       host knows from them: each block's frame, literal bytes and
+       sequence item, the segment table's width, each frame's declared
+       size (:func:`predicted_sizes`);
+    2. all of it, the entry included, up in one pinned copy
+       (:func:`stage`, the phase ``torch.zstd_stage``);
+    3. every Huffman literal stream in one launch, each written straight to
+       its place in its frame's literal row;
+    4. every FSE sequence section in one launch;
+    5. repeat offsets: per-block totals (``torch.rep_resolve``), the entry
+       states stitched frame by frame on the device
+       (``assemble_torch.stitch``, which also places every block and makes
+       every layout check; ``torch.zstd_assemble``), then the offsets
+       resolved (``torch.rep_resolve``);
+    6. the layout (``assemble_torch.layout``): each frame's segments in one
+       (F, SB) table, the "beyond decoded history" check, the raw literal
+       runs copied in;
+    7. one replay row per frame (``lz4_torch.replay_enqueue``), the rows
+       trimmed to the declared sizes behind the record of every check
+       (``assemble_torch.trim``), one read-back into pinned memory; then
+       the errors in the order the checks run, the content checksums, and
+       one copy into the returned bytes.
+
+    A frame with no declared size (or one its blocks cannot hold) sends the
+    read to the exact path: the record and sizes are read back after step
+    6, then the replay; a declared size the device finds wrong replays
+    again at the computed sizes.  Both count ``torch.zstd_resize`` and give
+    the same bytes and errors.
 
     With ``mesh`` (a ``DeviceMesh``) the Huffman and FSE decode batches of
-    steps 2 and 3 shard over its devices, as the JAX function's do over its
-    mesh; steps 4 to 6 run on ``device``.
+    steps 3 and 4 shard over its devices, as the JAX function's do over its
+    mesh, each checked where it runs; the rest runs on ``device``.
 
-    Raises DecompressError, with the messages of the JAX function, on
-    malformed input; the codec then falls back (dictionaries, offset codes
-    above 30)."""
+    Raises DecompressError, with the messages of the JAX function and in
+    its order, on malformed input; the codec then falls back
+    (dictionaries, offset codes above 30)."""
     dev = torch.device(device)
-    shards = dev if mesh is None else mesh
     with metrics.phase("torch.zstd_walk", len(data)):
         plan = zstd_plan(data)
     F = len(plan.frame_chk)
-    LB = plan.lit_row
-
-    with metrics.phase("torch.huffman_decode", plan.n_syms):
-        entry = None
-        if plan.native and data:
-            # the native batches and runs point into the entry: one upload
-            with metrics.phase("torch.huffman_decode.wait", len(data)):  # a blocking upload
-                entry = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
-        if plan.n_streams:
-            lit_flat, final = TorchHuffmanDecoder(shards).decode_built(plan.huffman(entry),
-                                                                       F * LB)
-            if (final != 0).any():
-                raise DecompressError("huffman stream not fully consumed")
-            lit_flat = lit_flat.to(dev)
-        else:
-            lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
-        _scatter_runs(lit_flat, entry if plan.run_source is None else plan.run_source,
-                      plan.runs)
-
-    B = plan.n_items
-    if B:
-        with metrics.phase("torch.fse_decode", plan.n_seqs):
-            flat, seq_off = fse_torch.TorchSequenceDecoder(shards).decode_built(
-                plan.sequences(entry))
-            ll_d, ml_d, ov_d = (t.to(dev) for t in flat)
-        with metrics.phase("torch.rep_resolve", int(seq_off[-1])):
-            with metrics.phase("torch.rep_resolve.wait"):  # a blocking upload
-                seq_off_d = torch.from_numpy(seq_off).to(dev)
-            totals = fse_torch.rep_totals(ov_d, ll_d, ml_d, seq_off_d)
-            with metrics.phase("torch.rep_resolve.wait", sum(t.nbytes for t in totals)):
-                tot_sel, tot_val, sums = (t.cpu().numpy() for t in totals)
-            entry_rep = np.zeros((B, 3), np.int32)
-            frame = -1
-            for j, slot in zip(plan.blk_frame, plan.blk_slot):
-                if j != frame:  # each frame starts from the initial offsets
-                    frame, rep = j, [1, 4, 8]
-                if slot >= 0:
-                    entry_rep[slot] = rep
-                    rep = fse_torch.eval_rep_map(tot_sel[slot], tot_val[slot], rep)
-            with metrics.phase("torch.rep_resolve.wait"):  # a blocking upload
-                entry_d = torch.from_numpy(entry_rep).to(dev)
-            offs_d, err = fse_torch.rep_apply(ov_d, ll_d, seq_off_d, entry_d)
-            with metrics.phase("torch.rep_resolve.wait", err.nbytes):
-                err = err.cpu().numpy()
-            if err.any():
-                raise DecompressError("repeat offset underflow")
-        sum_ll, sum_ml = sums[:, 0].tolist(), sums[:, 1].tolist()
-
-    with metrics.phase("torch.zstd_assemble", F):
-        # host layout: every segment's frame row and column, known from the
-        # headers and the per-block sums
-        f_nseg, f_total = [], []
-        sq_shift = np.zeros(B, np.int64)
-        n_seq = np.diff(seq_off).tolist() if B else []
-        fixed = []  # literal-only segments: (frame, column, literal length)
-        nseg = total = 0
-        n_blk = len(plan.blk_frame)
-        for i, (j, lt, slot) in enumerate(zip(plan.blk_frame, plan.blk_lits, plan.blk_slot)):
-            if slot < 0:
-                total += lt
-                if lt:
-                    fixed.append((j, nseg, lt))
-                    nseg += 1
-            else:
-                tail = lt - sum_ll[slot]
-                if tail < 0:
-                    raise DecompressError("literal run overruns literals")
-                produced = lt + sum_ml[slot]
-                if produced > zframe.MAX_BLOCK_SIZE:
-                    # a block regenerates at most 128 KiB (RFC 8878)
-                    raise DecompressError("block regenerated size too large")
-                total += produced
-                sq_shift[slot] = nseg  # the frame row's base is added below
-                nseg += n_seq[slot]
-                if tail:
-                    fixed.append((j, nseg, tail))
-                    nseg += 1
-            if i + 1 == n_blk or plan.blk_frame[i + 1] != j:  # the frame's last block
-                f_nseg.append(nseg)
-                f_total.append(total)
-                nseg = total = 0
-                if max_out is not None and sum(f_total) > max_out:
-                    raise DecompressError("zstd output exceeds expected size")
-        outs = [b""] * F
-        if max(f_total, default=0) > 0:
-            SB = max(max(f_nseg), 1)
-            seg = torch.zeros((3, F * SB), dtype=torch.int32, device=dev)  # ll, ml, off
-            if B:
-                frame_of = np.array([j for j, slot in zip(plan.blk_frame, plan.blk_slot)
-                                     if slot >= 0], np.int64)
-                with metrics.phase("torch.zstd_assemble.wait"):  # blocking uploads
-                    shift = torch.from_numpy(frame_of * SB + sq_shift - seq_off[:-1]).to(dev)
-                    nsq = torch.from_numpy(np.diff(seq_off)).to(dev)
-                idx = torch.repeat_interleave(shift, nsq, output_size=int(seq_off[-1])) \
-                    + torch.arange(int(seq_off[-1]), device=dev)
-                seg[:, idx] = torch.stack([ll_d, ml_d, offs_d])
-            if fixed:
-                fx = torch.tensor([[j * SB + p, lt] for j, p, lt in fixed], dtype=torch.int64)
-                with metrics.phase("torch.zstd_assemble.wait"):  # blocking uploads
-                    fx_d = fx[:, 0].to(dev), fx[:, 1].to(torch.int32).to(dev)
-                seg[0, fx_d[0]] = fx_d[1]
-            # counterpart of extract._seg_prefix_validate
-            ll, ml, off = (t.view(F, SB).to(torch.int64) for t in seg)
-            seg_len = ll + ml
-            seg_st = torch.cumsum(seg_len, 1) - seg_len
-            lit_st = torch.cumsum(ll, 1) - ll
-            with metrics.phase("torch.zstd_assemble.wait"):  # a blocking upload
-                nseg_d = torch.tensor(f_nseg, dtype=torch.int32, device=dev)
-            valid = torch.arange(SB, device=dev) < nseg_d[:, None]
-            beyond = (valid & (ml > 0) & (off > seg_st + ll)).any()
-            with metrics.phase("torch.zstd_assemble.wait", 1):
-                beyond = bool(beyond)
-            if beyond:
-                raise DecompressError("match offset beyond decoded history")
-
-    if max(f_total, default=0) > 0:
-        with metrics.phase("torch.replay", sum(f_total)):
-            with metrics.phase("torch.replay.wait"):  # a blocking upload
-                f_total_d = torch.tensor(f_total, dtype=torch.int32, device=dev)
-            rows = lz4_torch.replay(
-                lit_flat.view(F, LB), seg_st.to(torch.int32), lit_st.to(torch.int32),
-                seg[0].view(F, SB), seg[2].view(F, SB), nseg_d, f_total_d, n_out=max(f_total))
-            with metrics.phase("torch.replay.wait", rows.nbytes):
-                rows = rows.cpu().numpy()
-            outs = [rows[j, :t].tobytes() for j, t in enumerate(f_total)]
-
-    with metrics.phase("torch.zstd_checksum", sum(f_total)):
-        for chk, fb in zip(plan.frame_chk, outs):
-            if chk is not None and (XXH64State(0).update(fb).digest() & 0xFFFFFFFF) != chk:
-                raise DecompressError("content checksum mismatch")
-    with metrics.phase("torch.zstd_join", sum(f_total)):
-        result = b"".join(outs)
+    result = b""
+    if F:
+        result = _decode_planned(plan, data, max_out, dev, mesh)
     if max_out is not None and len(result) > max_out:
         raise DecompressError("zstd output exceeds expected size")
     return result
+
+
+def _decode_planned(plan: ZstdPlan, data: bytes, max_out, dev, mesh) -> bytes:
+    """Steps 2 to 7 of :func:`decompress_zstd_device` for an entry of at
+    least one frame."""
+    F, LB, B = len(plan.frame_chk), plan.lit_row, plan.n_items
+    blk = plan.blocks
+    slot = blk[:, 2]
+    huf = plan.huffman(None) if plan.n_streams else None
+    deferred = None  # the FSE batch's own error comes after the Huffman check
+    try:
+        fse = plan.sequences(None) if B else None
+    except DecompressError as e:
+        fse, deferred = None, e
+    seq_off = fse["seq_off"] if fse is not None else np.zeros(1, np.int64)
+    sizes = predicted_sizes(plan, max_out)
+    up = {"blk": blk, "frame_first": np.searchsorted(blk[:, 0], np.arange(F + 1)),
+          "seq_off": seq_off, "runs": plan.runs,
+          "declared": sizes if sizes is not None else np.full(F, -1, np.int64)}
+    if sizes is not None:
+        up["offsets"] = _frame_offsets(sizes)
+    if plan.native:  # the batches and the runs point into the entry
+        up["entry"] = data
+    else:
+        up["run_src"] = plan.run_source
+    if mesh is None:
+        if huf is not None:
+            up.update({f"huf_{k}": huf[k] for k in huffman_torch.DECODE_ARGS
+                       if huf[k] is not None})
+        if fse is not None:
+            up.update({f"fse_{k}": fse[k] for k in ("payload", "rows", "al", "tables")
+                       if fse[k] is not None})
+    with metrics.phase("torch.zstd_stage", sum(len(v) if isinstance(v, bytes) else v.nbytes
+                                               for v in up.values())):
+        d = stage(up, dev)
+    entry = d.get("entry")
+    shards = dev if mesh is None else mesh
+    i32 = torch.int32
+
+    with metrics.phase("torch.huffman_decode", plan.n_syms):
+        final = torch.zeros(0, dtype=i32, device=dev)
+        if huf is None:
+            lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
+        elif mesh is None:
+            lit_flat, final = huffman_torch.decode_streams(
+                d.get("huf_payload", entry), d["huf_rows"], d["huf_tables"], n_out=F * LB,
+                widest=huf["widest"])
+        else:  # the shards' own uploads and read-back, so checked here
+            lit_flat, fin = TorchHuffmanDecoder(shards).decode_built(
+                huf if huf["payload"] is not None else {**huf, "payload": entry}, F * LB)
+            if (fin != 0).any():
+                raise DecompressError("huffman stream not fully consumed")
+            lit_flat = lit_flat.to(dev)
+        if deferred is not None:  # no FSE batch: the Huffman check, then its error
+            with metrics.phase("torch.huffman_decode.wait", final.nbytes):
+                if bool((final != 0).any()):
+                    raise DecompressError("huffman stream not fully consumed")
+            raise deferred
+
+    # the segment table's width: a frame's sequences, and a segment a block
+    # for its literal tail or its literals alone
+    per_block = np.ones(len(blk), np.int64)
+    per_block[slot >= 0] += np.diff(seq_off)[slot[slot >= 0]]
+    SB = max(int(np.bincount(blk[:, 0], per_block, minlength=F).max()), 1)
+    seq_d = d["seq_off"]
+    if B:
+        with metrics.phase("torch.fse_decode", plan.n_seqs):
+            if mesh is None:
+                lls, mls, ovs, pos_f, ferr = fse_torch.decode_seq_streams(
+                    d.get("fse_payload", entry), d["fse_rows"], seq_d, d["fse_al"],
+                    d["fse_tables"], shape=fse_torch.decode_shape(fse["rows"], seq_off))
+            else:  # the shards raise their own errors, in item order
+                flat, _ = fse_torch.TorchSequenceDecoder(shards).decode_built(
+                    fse if fse["payload"] is not None else {**fse, "payload": entry})
+                lls, mls, ovs = (t.to(dev) for t in flat)
+                pos_f, ferr = torch.zeros(B, dtype=i32, device=dev), \
+                    torch.zeros(B, dtype=torch.bool, device=dev)
+    else:
+        lls = mls = ovs = pos_f = torch.zeros(0, dtype=i32, device=dev)
+        ferr = torch.zeros(0, dtype=torch.bool, device=dev)
+    rec = assemble_torch.new_record(F, dev)
+    max_o = -1 if max_out is None else max_out
+
+    def stitch(declared, cap):
+        return assemble_torch.stitch(d["blk"], d["frame_first"], seq_d, sel, val, sums, final,
+                                     pos_f, ferr, declared, rec, max_out=max_o, cap=cap)
+
+    cap = int(sizes.max()) if sizes is not None else assemble_torch.NONE
+    if B:
+        with metrics.phase("torch.rep_resolve", plan.n_seqs):
+            sel, val, sums = fse_torch.rep_totals(ovs, lls, mls, seq_d)
+    else:
+        sel = val = torch.zeros((0, 3), dtype=i32, device=dev)
+        sums = torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    with metrics.phase("torch.zstd_assemble", F):
+        entry_rep, bases, frame_out = stitch(d["declared"], cap)
+    if B:  # the offsets from the entry states the stitch composed
+        with metrics.phase("torch.rep_resolve", 0):
+            offs, rep_err = fse_torch.rep_apply(ovs, lls, seq_d, entry_rep)
+    else:
+        offs, rep_err = lls, ferr
+
+    with metrics.phase("torch.zstd_assemble", 0):
+        seg = assemble_torch.layout(
+            d["blk"], d["frame_first"], bases, seq_d, lls, mls, offs, sums, rep_err, rec, SB=SB,
+            runs=d["runs"], run_src=d.get("run_src", entry), lits=lit_flat)
+        if sizes is None:  # the exact path: the sizes first
+            metrics.count("torch.zstd_resize")
+            with metrics.phase("torch.zstd_assemble.wait", rec.nbytes):
+                head = _read_back(rec)
+            err = assemble_torch.first_error(head)
+            if err is not None:
+                raise err
+            sizes = assemble_torch.record_sizes(head).copy()
+            d["offsets"] = stage({"offsets": _frame_offsets(sizes)}, dev)["offsets"]
+
+    def replay_and_read(frame_out, offsets, sizes):
+        total, n_out = int(sizes.sum()), int(sizes.max())
+        with metrics.phase("torch.replay", total):
+            rows, state = lz4_torch.replay_enqueue(
+                lit_flat.view(F, LB), *(t.view(F, SB) for t in seg), frame_out[0], frame_out[1],
+                n_out=n_out) if n_out else (None, None)
+            out = assemble_torch.trim(rows, offsets, state, rec, total=total)
+            with metrics.phase("torch.replay.wait", out.nbytes):
+                view = _read_back(out)
+            return view[:4 * rec.numel()].view(np.int32), view[4 * rec.numel():]
+
+    head, flat = replay_and_read(frame_out, d["offsets"], sizes)
+    err = assemble_torch.first_error(head)
+    if err is not None:
+        raise err
+    if head[assemble_torch.REC_RESIZE]:  # a declared size was wrong: replay at the computed
+        sizes = assemble_torch.record_sizes(head).copy()
+        with metrics.phase("torch.zstd_assemble", F):
+            metrics.count("torch.zstd_resize")
+            _, _, frame_out = stitch(torch.full((F,), -1, dtype=torch.int64, device=dev),
+                                     assemble_torch.NONE)
+            offsets = stage({"offsets": _frame_offsets(sizes)}, dev)["offsets"]
+        head, flat = replay_and_read(frame_out, offsets, sizes)
+    if head[assemble_torch.REC_REPLAY]:
+        raise RuntimeError(lz4_torch.REPLAY_UNRESOLVED)
+
+    bounds = _frame_offsets(sizes).tolist()
+    with metrics.phase("torch.zstd_checksum", len(flat)):
+        for chk, a, b in zip(plan.frame_chk, bounds[:-1], bounds[1:]):
+            if chk is not None and \
+                    (XXH64State(0).update(memoryview(flat[a:b])).digest() & 0xFFFFFFFF) != chk:
+                raise DecompressError("content checksum mismatch")
+    with metrics.phase("torch.zstd_join", len(flat)):
+        return flat.tobytes()

@@ -55,13 +55,13 @@
    sequences, offset code 31, 16-bit length extras, a block above the
    stage cap, 300 tiny blocks beside a long one, tile edges, bits ending on
    a word; exact); then the
-   zstd main path runs again with the launch counters at zero, and its
+   zstd main path runs again, its launches counted from there, and its
    frame must equal the host-entropy frame, decode natively, and both
    kernels must have been launched by that run (a 1 MiB cut must also
    decode with the python oracle);
 7. zstd extract: the Writer with the port's engine writes the 64 MiB corpus
    as one zstd level-3 entry (16 frames); a first ``decompress_zstd_device``
-   run over its bytes, with the launch counters at zero, records the inputs
+   run over its bytes, its launches counted from there, records the inputs
    of every kernel it launches (each once); the Huffman decode, FSE decode
    and repeat-offset kernels, the assembly's stitch, layout and trim (every
    output, the check record and the literal rows), and the replay on the
@@ -74,12 +74,12 @@
    and one symbol, over-read and unconsumed streams, shared tables,
    scattered destinations, malformed rows, a row above the stage among
    1,000 short ones; exact); then
-   ``Reader.read_file`` of the entry runs twice with the launch counters
-   and the codec's fallback counts at zero: the corpus must come back (XXH3
-   verified), every one of those kernels must have been launched and no fallback
-   taken; ``native.zstd_decompress`` of the entry is timed for
-   scale; the fallback ``decompress_zstd_batched`` must decode the first
-   frame, and a frame with one corrupted byte must raise DecompressError;
+   ``Reader.read_file`` of the entry runs twice, its launches counted from
+   there and the codec's fallback count at zero: the corpus must come back
+   (XXH3 verified), every one of those kernels must have been launched and no
+   step down to the host taken; ``native.zstd_decompress`` of the entry is
+   timed for scale; and ``decompress_zstd_device`` must raise
+   DecompressError on a frame with one corrupted byte;
 8. the tokenizer's other wire formats and its size estimate: the "u16"
    epilogue on the corpus in 8 KiB blocks, the "hash" epilogue at caps 8 and
    16 and the "scatter" epilogue at cap 16 on the corpus in 64 KiB blocks,
@@ -90,7 +90,7 @@
 9. the shared-dictionary zstd path: a 2 KiB dictionary trained on the cut's
    first 8 KiB, ``compress_zstd(cut, 3, dictionary=blob)`` at 8 KiB blocks
    ("pair" mode, window 10,240) and at 4 KiB blocks ("u16" mode, window
-   6,144) with the launch counters at zero; the frames must decode to the
+   6,144), its launches counted from there; the frames must decode to the
    cut with the port's host decoder and the dictionary, and the mode's
    tokenizer must have been launched (every tokenizer launch reduces the
    estimate in its own body, so the estimate's launches are the tokenizer's);
@@ -163,6 +163,28 @@ CHAIN_STEP_NS = 20.0
 #: 2,970 symbols) in the design of one thread a stream, the kernel's launch
 #: through its wrapper by CUDA events, on an H100 80GB HBM3 at 700 W
 ONE_THREAD_HUFFMAN_MS = 1.120
+
+
+#: the kernels the launch lines print, zeros included
+LZ4_KERNELS = ("lz4_tokenize", "lz4_tokenize_u16", "lz4_tokenize_hash", "lz4_tokenize_scatter",
+               "lz4_parse", "lz4_replay")
+XXH3_KERNELS = ("xxh3_batch", "xxh3_stream")
+
+
+def launch_mark():
+    """The registry's launch counts now: the mark :func:`launch_counts`
+    counts from."""
+    from zpack_tpu_torch.utils.observe import launches
+
+    return launches()
+
+
+def launch_counts(mark, kernels) -> dict:
+    """Each of ``kernels``' launches since ``mark``, zeros included."""
+    from zpack_tpu_torch.utils.observe import launches
+
+    run = launches(mark)
+    return {k: run[k] for k in kernels}
 
 
 def tensor_bytes(*tensors) -> int:
@@ -629,12 +651,12 @@ def phase_xxh3_main(files: list[bytes], corpus: bytes, device, xxh3_torch, H) ->
     if len(entries) != len(files) or any(e.comp_method != CompressionMethod.NONE for e in entries):
         raise AssertionError("archive entries are not the stored files")
     datas = [bytes(buf[e.offset:e.offset + e.comp_size]) for e in entries]
-    xxh3_torch.reset_launches()
+    mark = launch_mark()
     t0 = time.perf_counter()
     got = xxh3_torch.xxh3_64_batch(datas, device)
     t_batch = time.perf_counter() - t0
     whole = xxh3_torch.xxh3_64(corpus, device)
-    launches = dict(xxh3_torch.LAUNCHES)
+    launches = launch_counts(mark, XXH3_KERNELS)
     print(f"xxh3 main path launches: {json.dumps(launches)}")
     if got != [e.hash for e in entries]:
         raise AssertionError("xxh3_64_batch disagrees with the archive's CDR hashes")
@@ -649,7 +671,7 @@ def phase_xxh3_main(files: list[bytes], corpus: bytes, device, xxh3_torch, H) ->
     return launches
 
 
-def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
+def phase_main_path(corpus: bytes, device) -> dict:
     from zpack_tpu_torch import CompressionMethod, CompressOptions, Reader, Writer, codecs
     from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
     from zpack_tpu_torch.utils.observe import metrics
@@ -657,8 +679,8 @@ def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
     # nothing installed: the Writer and the Reader take the GPU by default
     if codecs.device() != device:
         raise AssertionError(f"the codecs' default device is {codecs.device()!r}, not {device!r}")
-    lz4_torch.reset_launches()
     metrics.reset()
+    mark = launch_mark()
     for rep in (1, 2):
         t0 = time.perf_counter()
         w = Writer.to_heap()
@@ -676,7 +698,7 @@ def phase_main_path(corpus: bytes, device, lz4_torch) -> dict:
               f"({t_create:.3f} s), extract {mb / t_extract:.2f} MB/s "
               f"({t_extract:.3f} s), round trip {2 * mb / (t_create + t_extract):.2f} MB/s, "
               f"ratio {len(corpus) / len(buf):.4f} ({len(buf)} archive bytes)")
-    launches = dict(lz4_torch.LAUNCHES)
+    launches = launch_counts(mark, LZ4_KERNELS)
     print("main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
     print(f"main path launches: {json.dumps(launches)}")
     for k in ("lz4_tokenize", "lz4_parse", "lz4_replay"):
@@ -951,21 +973,18 @@ def phase_fse_encode_cases(device, fse_torch) -> int:
     return err
 
 
-def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceCompressor,
-               huffman_torch, fse_torch) -> dict:
+def phase_zstd(cut: bytes, corpus: bytes, first_frame: bytes, device, DeviceCompressor) -> dict:
     from zpack_tpu_torch import native
     from zpack_tpu_torch.codecs.zstd import frame as ZF
     from zpack_tpu_torch.utils.observe import metrics
 
     dc = DeviceCompressor(device)  # level 1, 64 KiB blocks, as dryrun_multichip
-    huffman_torch.reset_launches()
-    fse_torch.reset_launches()
     metrics.reset()
+    mark = launch_mark()
     t0 = time.perf_counter()
     frame = dc.compress_zstd(cut, 3)
     t_dev = time.perf_counter() - t0
-    launches = {"huffman_encode": huffman_torch.LAUNCHES["huffman_encode"],
-                "fse_encode": fse_torch.LAUNCHES["fse_encode"]}
+    launches = launch_counts(mark, ("huffman_encode", "fse_encode"))
     phases = metrics.snapshot()
     print(f"zstd main path launches: {json.dumps(launches)}")
     for k, n in launches.items():
@@ -1193,8 +1212,7 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
     """Record each kernel's inputs on a first run of the device path, then
     hold each kernel against its plain version on them and time both (each
     kernel 10 times, its plain version once)."""
-    for name in EXTRACT_KERNELS:
-        modules[name].reset_launches()
+    mark = launch_mark()
     with recording_kernels(modules) as calls:
         t0 = time.perf_counter()
         out = extract.decompress_zstd_device(comp, len(corpus), device=device)
@@ -1202,10 +1220,11 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
               f"{time.perf_counter() - t0:.3f} s")
     if out != corpus:
         raise AssertionError("zstd extract: the first device run does not give the corpus back")
+    run = launch_counts(mark, EXTRACT_KERNELS)
     for name in EXTRACT_KERNELS:
-        if len(calls.get(name, ())) != 1 or modules[name].LAUNCHES[name] != 1:
+        if len(calls.get(name, ())) != 1 or run[name] != 1:
             raise AssertionError(f"zstd extract: {name} was called {len(calls.get(name, ()))} "
-                                 f"times and launched {modules[name].LAUNCHES[name]}, not once")
+                                 f"times and launched {run[name]}, not once")
     res = phase_zstd_assembly(calls, device, modules["zstd_stitch"])
     for name, attr in EXTRACT_KERNELS.items():
         if name in ASSEMBLY_WRITES:
@@ -1248,19 +1267,18 @@ def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modu
     return res
 
 
-def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device, modules) -> dict:
-    """``Reader.read_file`` of the zstd entry, twice, with every launch
-    counter and the codec's fallback counts at zero."""
+def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device) -> dict:
+    """``Reader.read_file`` of the zstd entry, twice, its launches counted
+    from there and the codec's fallback count at zero."""
     from zpack_tpu_torch import Reader, engine, native
     from zpack_tpu_torch.codecs import zstd as port_zstd
     from zpack_tpu_torch.utils.observe import metrics
 
     engine.install(device)
     try:
-        for name in EXTRACT_KERNELS:
-            modules[name].reset_launches()
         port_zstd.reset_fallbacks()
         metrics.reset()
+        mark = launch_mark()
         mb = len(corpus) / 1e6
         for rep in (1, 2):
             t0 = time.perf_counter()
@@ -1269,7 +1287,7 @@ def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device, modules) ->
             if out != corpus:
                 raise AssertionError("zstd extract main path: bytes differ")
             print(f"zstd extract main path rep {rep}: {mb / t:.2f} MB/s ({t:.3f} s)")
-        launches = {name: modules[name].LAUNCHES[name] for name in EXTRACT_KERNELS}
+        launches = launch_counts(mark, EXTRACT_KERNELS)
         fallbacks = dict(port_zstd.FALLBACKS)
         print("zstd extract main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
     finally:
@@ -1291,18 +1309,14 @@ def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device, modules) ->
     return launches
 
 
-def phase_zstd_fallback(comp: bytes, corpus: bytes, device, extract) -> None:
-    """The fallback decodes the first frame; a corrupted byte raises."""
+def phase_zstd_corrupt_raises(comp: bytes, corpus: bytes, device, extract) -> None:
+    """A corrupted byte makes the device route raise DecompressError, the
+    error the codec takes its one step down on."""
     from zpack_tpu_torch.codecs.zstd import frame as zframe
     from zpack_tpu_torch.errors import DecompressError
     from zpack_tpu_torch.parallel.host import _scan_zstd_frames
 
-    start, end, size = _scan_zstd_frames(comp)[0]
-    t0 = time.perf_counter()
-    out = extract.decompress_zstd_batched(comp[start:end], size, device=device)
-    t = time.perf_counter() - t0
-    if out != corpus[:size]:
-        raise AssertionError("decompress_zstd_batched does not give the first frame back")
+    start, end, _ = _scan_zstd_frames(comp)[0]
     # zero the last byte of the first block with sequences: its sequence
     # bitstream's sentinel
     pos = start + 4 + zframe.parse_frame_header(comp, start + 4).header_size
@@ -1317,8 +1331,8 @@ def phase_zstd_fallback(comp: bytes, corpus: bytes, device, extract) -> None:
     try:
         extract.decompress_zstd_device(bytes(bad), len(corpus), device=device)
     except DecompressError as e:
-        print(f"zstd fallback: decompress_zstd_batched gives the first frame back ({size} bytes "
-              f"in {t:.3f} s); a zeroed byte at {pos - 1} raises DecompressError ({e})")
+        print(f"zstd corrupted frame: a zeroed byte at {pos - 1} makes decompress_zstd_device "
+              f"raise DecompressError ({e})")
         return
     raise AssertionError("a corrupted zstd frame did not raise DecompressError")
 
@@ -1400,7 +1414,7 @@ def train_blob(cut: bytes) -> bytes:
     return train_dictionary([cut[i:i + 512] for i in range(0, 8192, 512)], 2048)
 
 
-def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> tuple:
+def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor) -> tuple:
     """The shared-dictionary zstd path at 8 KiB blocks ("pair" mode) and at
     4 KiB blocks ("u16" mode); each frame set decodes to the cut.  Returns
     the launches and the frames of each block size."""
@@ -1411,12 +1425,12 @@ def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> 
     mb = len(cut) / 1e6
     for B, key in ((8192, "lz4_tokenize"), (4096, "lz4_tokenize_u16")):
         dc = DeviceCompressor(device, block_size=B)
-        lz4_torch.reset_launches()
         metrics.reset()
+        mark = launch_mark()
         t0 = time.perf_counter()
         comp = dc.compress_zstd(cut, 3, dictionary=blob)
         t = time.perf_counter() - t0
-        run = dict(lz4_torch.LAUNCHES)
+        run = launch_counts(mark, LZ4_KERNELS)
         print(f"dictionary path B={B} ({dc._mode(2048)} mode, {len(cut)} bytes): "
               f"{mb / t:.2f} MB/s ({t:.3f} s), ratio {len(cut) / len(comp):.4f} "
               f"({len(comp)} bytes), launches {json.dumps(run)}")
@@ -1435,15 +1449,15 @@ def phase_dict(cut: bytes, blob: bytes, device, DeviceCompressor, lz4_torch) -> 
     return launches, frames
 
 
-def phase_lz4_u16(corpus: bytes, device, DeviceCompressor, lz4_torch) -> dict:
+def phase_lz4_u16(corpus: bytes, device, DeviceCompressor) -> dict:
     """LZ4 ``compress`` at 8 KiB blocks ships the "u16" wire format."""
     from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
 
-    lz4_torch.reset_launches()
+    mark = launch_mark()
     t0 = time.perf_counter()
     comp = DeviceCompressor(device, block_size=8192).compress(corpus)
     t = time.perf_counter() - t0
-    run = dict(lz4_torch.LAUNCHES)
+    run = launch_counts(mark, LZ4_KERNELS)
     if run["lz4_tokenize_u16"] <= 0 or run["lz4_tokenize"]:
         raise AssertionError(f"LZ4 compress at 8 KiB blocks did not run in u16 mode: {run}")
     if lz4frame.decompress_frame(comp, len(corpus)) != corpus:
@@ -1457,7 +1471,7 @@ def phase_lz4_u16(corpus: bytes, device, DeviceCompressor, lz4_torch) -> dict:
 def phase_entry(corpus: bytes, device, lz4_torch, lz4block) -> dict:
     """``entry("cuda")`` once, and ``compress_block`` on a 16 KiB sample."""
     forward, (sample,) = lz4_torch.entry(device)
-    lz4_torch.reset_launches()
+    mark = launch_mark()
     src, mlen = forward(sample)
     torch.cuda.synchronize()
     want = lz4_torch.tokenize_plain(sample[None, :], 2, 16, "scatter")
@@ -1467,7 +1481,7 @@ def phase_entry(corpus: bytes, device, lz4_torch, lz4block) -> dict:
     comp = lz4_torch.compress_block(raw, device)
     if lz4block.decompress_block(comp, len(raw)) != raw:
         raise AssertionError("compress_block: the host block decoder does not give the sample back")
-    run = dict(lz4_torch.LAUNCHES)
+    run = launch_counts(mark, LZ4_KERNELS)
     print(f"entry: forward(sample) gives {int((mlen >= 4).sum())} match positions, equal to plain; "
           f"compress_block: {len(raw)} -> {len(comp)} bytes, decoded by the host block decoder; "
           f"launches {json.dumps(run)}")
@@ -1609,7 +1623,7 @@ def run_two_ranks(tmp: str, timeout: float = 300.0) -> list:
 
 
 def phase_mesh(corpus: bytes, cut: bytes, blob: bytes, zcomp: bytes, zstd_frame: bytes,
-               dict_frame: bytes, device, card: str, lz4_torch) -> dict:
+               dict_frame: bytes, device, card: str) -> dict:
     """Multi-device and multi-host: (a) the mesh of the visible cards and a
     mesh that names cuda:0 twice give the one-device frames (LZ4 of the
     corpus, zstd of the cut, the 8 KiB dictionary path on the cut's first 4
@@ -1649,7 +1663,7 @@ def phase_mesh(corpus: bytes, cut: bytes, blob: bytes, zcomp: bytes, zstd_frame:
     dbps = len(piece) // 8192 // 2
     for name, mesh in meshes.items():
         dc = DeviceCompressor(mesh)
-        lz4_torch.reset_launches()
+        mark = launch_mark()
         t0 = time.perf_counter()
         frame = dc.compress(corpus)
         torch.cuda.synchronize()
@@ -1657,20 +1671,22 @@ def phase_mesh(corpus: bytes, cut: bytes, blob: bytes, zcomp: bytes, zstd_frame:
         want = shard_launches(nb, dc.blocks_per_step, mesh.size)
         if frame != one:
             raise AssertionError(f"mesh {name}: the LZ4 frame differs from the one-device frame")
-        if lz4_torch.LAUNCHES["lz4_tokenize"] != want:
-            raise AssertionError(f"mesh {name}: {lz4_torch.LAUNCHES['lz4_tokenize']} tokenizer "
-                                 f"launches, not {want} (one a shard a step)")
+        got = launch_counts(mark, ["lz4_tokenize"])["lz4_tokenize"]
+        if got != want:
+            raise AssertionError(f"mesh {name}: {got} tokenizer launches, not {want} "
+                                 f"(one a shard a step)")
         dc.blocks_per_step = zbps
-        lz4_torch.reset_launches()
+        mark = launch_mark()
         t0 = time.perf_counter()
         zframe = dc.compress_zstd(cut, 3)
         times["zstd_s"][name] = time.perf_counter() - t0
         want_z = shard_launches(-(-len(cut) // B), zbps, mesh.size)
         if zframe != zstd_frame:
             raise AssertionError(f"mesh {name}: the zstd frame differs from the one-device frame")
-        if lz4_torch.LAUNCHES["lz4_tokenize"] != want_z:
-            raise AssertionError(f"mesh {name}: zstd launched the tokenizer "
-                                 f"{lz4_torch.LAUNCHES['lz4_tokenize']} times, not {want_z}")
+        got = launch_counts(mark, ["lz4_tokenize"])["lz4_tokenize"]
+        if got != want_z:
+            raise AssertionError(f"mesh {name}: zstd launched the tokenizer {got} times, "
+                                 f"not {want_z}")
         dd = DeviceCompressor(mesh, block_size=8192)
         dd.blocks_per_step = dbps
         t0 = time.perf_counter()
@@ -1821,15 +1837,14 @@ def main() -> int:
     xc = phase_xxh3_cases(device, xxh3_torch, H)
     xs = phase_xxh3_stream(corpus, device, xxh3_torch, H)
     x_launches = phase_xxh3_main(list(sets.values())[1], corpus, device, xxh3_torch, H)
-    launches = phase_main_path(corpus, device, lz4_torch)
+    launches = phase_main_path(corpus, device)
     cut = zstd_cut(corpus, ZSTD_BYTES)
     rec = record_zstd_batches(cut, device, DeviceCompressor, huffman_torch, fse_torch)
     hf = phase_huffman(rec, device, huffman_torch)
     hec = phase_huffman_encode_cases(device, huffman_torch)
     fs = phase_fse(rec["fse"], device, fse_torch)
     fec = phase_fse_encode_cases(device, fse_torch)
-    z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor,
-                            huffman_torch, fse_torch)
+    z_launches = phase_zstd(cut, corpus, rec["frame"], device, DeviceCompressor)
     modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch,
                "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch,
                **dict.fromkeys(ASSEMBLY_WRITES, assemble_torch)}
@@ -1837,18 +1852,18 @@ def main() -> int:
     zk = phase_zstd_extract_kernels(zcomp, corpus, device, extract, modules)
     fc = phase_fse_cases(device, fse_torch)
     hc = phase_huffman_cases(device, huffman_torch)
-    zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device, modules)
-    phase_zstd_fallback(zcomp, corpus, device, extract)
+    zx_launches = phase_zstd_extract_main(zbuf, zcomp, corpus, device)
+    phase_zstd_corrupt_raises(zcomp, corpus, device, extract)
     zstd_frame = rec["frame"]
     del zbuf, rec
     blob = train_blob(cut)
     ep = phase_epilogues(corpus, cut, blob, device, lz4_torch)
-    d_launches, d_frames = phase_dict(cut, blob, device, DeviceCompressor, lz4_torch)
-    u16_launches = phase_lz4_u16(corpus, device, DeviceCompressor, lz4_torch)
+    d_launches, d_frames = phase_dict(cut, blob, device, DeviceCompressor)
+    u16_launches = phase_lz4_u16(corpus, device, DeviceCompressor)
     e_launches = phase_entry(corpus, device, lz4_torch, lz4block)
     phase_cli(corpus)
     with codecs_on(device):  # the codecs of the elastic and checkpoint references
-        phase_mesh(corpus, cut, blob, zcomp, zstd_frame, d_frames[8192], device, card, lz4_torch)
+        phase_mesh(corpus, cut, blob, zcomp, zstd_frame, d_frames[8192], device, card)
     del zcomp
 
     jax_mods = sorted(m for m in sys.modules

@@ -20,6 +20,7 @@ import zpack_tpu_torch as zp
 from zpack_tpu_torch import codecs, engine
 from zpack_tpu_torch.codecs import zstd as port_zstd
 from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
+from zpack_tpu_torch.kernels import lz4_torch
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.extract import decompress_lz4f_batched
 from zpack_tpu_torch.parallel.mesh import make_mesh
@@ -382,62 +383,100 @@ def test_count_survives_reset_and_snapshot():
     assert json.loads(m.report())["launch.k"]["parents"] == {"": 3}
 
 
-def _statement_lists(tree):
+def _launch_sites(tree) -> tuple[list, list]:
+    """``(function, key)`` of every ``launched(key)`` call in source order,
+    the key as source; and the line of every ``metrics.count`` of a
+    ``launch.`` name, a launch recorded beside the helper."""
+    sites, beside = [], []
+
+    def visit(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Call) and child.args:
+                f, arg = child.func, ast.unparse(child.args[0])
+                if isinstance(f, ast.Name) and f.id == "launched":
+                    sites.append((fn, arg))
+                elif (isinstance(f, ast.Attribute) and f.attr == "count"
+                      and isinstance(f.value, ast.Name) and f.value.id == "metrics"
+                      and "launch." in arg):
+                    beside.append(child.lineno)
+            visit(child, child.name if isinstance(child, ast.FunctionDef) else fn)
+
+    visit(tree, None)
+    return sites, beside
+
+
+def _launch_keys(tree, sites) -> set:
+    """The kernel names the sites record: a constant key itself, a
+    parameter every constant its function's callers pass first, and
+    ``launch_key(mode)`` every tokenizer mode's name."""
+    passed: dict = {}
     for node in ast.walk(tree):
-        for field in ("body", "orelse", "finalbody"):
-            stmts = getattr(node, field, None)
-            if isinstance(stmts, list) and stmts and isinstance(stmts[0], ast.stmt):
-                yield stmts
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.args
+                and isinstance(node.args[0], ast.Constant)):
+            passed.setdefault(node.func.id, set()).add(node.args[0].value)
+    keys = set()
+    for fn, key in sites:
+        if key == "launch_key(mode)":
+            keys |= {lz4_torch.launch_key(m) for m in lz4_torch.MODES}
+        elif isinstance(ast.parse(key, mode="eval").body, ast.Constant):
+            keys.add(ast.literal_eval(key))
+        else:
+            keys |= passed.get(fn, set())
+    return keys
 
 
-def _launch_bumps(tree):
-    """``(statement, the statement after it)`` for every ``LAUNCHES[...] += 1``."""
-    for stmts in _statement_lists(tree):
-        for i, s in enumerate(stmts):
-            if (isinstance(s, ast.AugAssign) and isinstance(s.op, ast.Add)
-                    and isinstance(s.target, ast.Subscript)
-                    and isinstance(s.target.value, ast.Name) and s.target.value.id == "LAUNCHES"):
-                yield s, stmts[i + 1] if i + 1 < len(stmts) else None
+def _launch_problems(tree, want_sites, want_keys) -> list[str]:
+    sites, beside = _launch_sites(tree)
+    problems = [f"line {n}: a launch counted beside the helper" for n in beside]
+    if sites != want_sites:
+        problems.append(f"launch sites {sites}, not {want_sites}")
+    keys = _launch_keys(tree, sites)
+    if keys != want_keys:
+        problems.append(f"kernels {sorted(keys)}, not {sorted(want_keys)}")
+    return problems
 
 
-def _counts_launch_of(stmt, key) -> bool:
-    """``stmt`` is ``metrics.count("launch.<key>")`` for the subscript ``key``."""
-    if not (isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call)):
-        return False
-    call = stmt.value
-    if not (isinstance(call.func, ast.Attribute) and call.func.attr == "count"
-            and isinstance(call.func.value, ast.Name) and call.func.value.id == "metrics"
-            and len(call.args) == 1 and not call.keywords):
-        return False
-    name = call.args[0]
-    if isinstance(key, ast.Constant):
-        return isinstance(name, ast.Constant) and name.value == "launch." + key.value
-    return (isinstance(name, ast.BinOp) and isinstance(name.op, ast.Add)
-            and isinstance(name.left, ast.Constant) and name.left.value == "launch."
-            and ast.dump(name.right) == ast.dump(key))
+#: each kernel module's launch sites (function, key) in source order, and the
+#: kernels they record: one site a launch the module's wrappers make
+KERNEL_MODULES = {
+    "kernels/huffman_torch.py": (
+        [("encode_streams", "'huffman_encode'"), ("decode_streams", "'huffman_decode'")],
+        {"huffman_encode", "huffman_decode"}),
+    "kernels/fse_torch.py": (
+        [("encode_seq_streams", "'fse_encode'"), ("decode_seq_streams", "'fse_decode'"),
+         ("_rep_launch", "name")],
+        {"fse_encode", "fse_decode", "rep_totals", "rep_apply"}),
+    "kernels/lz4_torch.py": (
+        [("tokenize_est", "launch_key(mode)"), ("parse_batch", "'lz4_parse'"),
+         ("replay_enqueue", "'lz4_replay'")],
+        {"lz4_tokenize", "lz4_tokenize_u16", "lz4_tokenize_hash", "lz4_tokenize_scatter",
+         "lz4_parse", "lz4_replay"}),
+    "kernels/xxh3_torch.py": (
+        [("accumulate_batch", "'xxh3_batch'"), ("accumulate_stream", "'xxh3_stream'")],
+        {"xxh3_batch", "xxh3_stream"}),
+    "kernels/assemble_torch.py": (
+        [("_launch", "name")], {"zstd_stitch", "zstd_layout", "zstd_trim"}),
+}
 
 
-KERNEL_MODULES = ["kernels/huffman_torch.py", "kernels/fse_torch.py", "kernels/lz4_torch.py",
-                  "kernels/xxh3_torch.py", "kernels/assemble_torch.py"]
-
-
-@pytest.mark.parametrize("path", KERNEL_MODULES)
+@pytest.mark.parametrize("path", list(KERNEL_MODULES))
 def test_every_launch_is_counted_in_the_registry(path):
-    """Each ``LAUNCHES[key] += 1`` is followed by
-    ``metrics.count("launch.<key>")`` with the same key, so the registry
-    sees every launch the module dict does, under the phase open."""
-    tree = ast.parse((PKG / path).read_text())
-    bumps = list(_launch_bumps(tree))
-    assert bumps, path
-    for bump, after in bumps:
-        assert _counts_launch_of(after, bump.target.slice), f"{path}:{bump.lineno}"
+    """Each kernel module records its launches through
+    ``observe.launched``, which counts ``launch.<key>`` under the phase
+    open: at its known sites, under its known kernel names, and never with
+    a ``metrics.count`` of its own."""
+    assert _launch_problems(ast.parse((PKG / path).read_text()), *KERNEL_MODULES[path]) == []
 
 
 def test_launch_check_sees_a_missing_count():
-    src = ("def f(k):\n    LAUNCHES['a'] += 1\n    metrics.count('launch.a')\n"
-           "    LAUNCHES[k] += 1\n    metrics.count('launch.' + k)\n"
-           "    LAUNCHES['b'] += 1\n    metrics.count('launch.a')\n"
-           "    LAUNCHES[k] += 1\n")
-    got = [_counts_launch_of(after, bump.target.slice)
-           for bump, after in _launch_bumps(ast.parse(src))]
-    assert got == [True, True, False, False]
+    good = ("def f(k):\n    launched('a')\n    launched(k)\n\n"
+            "def g():\n    f('b')\n    launched('c')\n")
+    want = [("f", "'a'"), ("f", "k"), ("g", "'c'")], {"a", "b", "c"}
+    assert _launch_problems(ast.parse(good), *want) == []
+    # g's launch counted beside the helper: a site and a kernel missing
+    bad = good.replace("launched('c')", "metrics.count('launch.c')")
+    got = _launch_problems(ast.parse(bad), *want)
+    assert len(got) == 3 and got[0] == "line 7: a launch counted beside the helper"
+    # a site with no count at all
+    got = _launch_problems(ast.parse(good.replace("    launched('c')\n", "")), *want)
+    assert len(got) == 2 and got[0].startswith("launch sites")

@@ -29,7 +29,7 @@ from zpack_tpu_torch.kernels import (assemble_cases, assemble_torch, fse_cases, 
                                      xxh3_cases, xxh3_torch)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
-from zpack_tpu_torch.utils.observe import metrics
+from zpack_tpu_torch.utils.observe import launches, metrics
 
 torch.set_num_threads(1)
 
@@ -89,7 +89,7 @@ def _windows(B: int, dict_pad: int, cuda) -> torch.Tensor:
 ])
 def test_tokenize_epilogues_and_est_match_plain(cuda, mode, capj, B, dict_pad, depth):
     blocks = _windows(B, dict_pad, cuda)
-    lz4_torch.reset_launches()
+    mark = launches()
     got, est = lz4_torch.tokenize_est(blocks, depth, capj, mode, dict_pad)
     want = lz4_torch.tokenize_plain(blocks, depth, capj, mode, dict_pad)
     torch.cuda.synchronize()
@@ -98,8 +98,7 @@ def test_tokenize_epilogues_and_est_match_plain(cuda, mode, capj, B, dict_pad, d
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.to(torch.int32), w.to(torch.int32))
     assert torch.equal(est, lz4_torch.est_plain(want, mode))
-    assert lz4_torch.LAUNCHES == {**dict.fromkeys(lz4_torch.LAUNCHES, 0),
-                                  lz4_torch.launch_key(mode): 1}
+    assert launches(mark) == {lz4_torch.launch_key(mode): 1}
 
 
 _TOKENIZE_CASES = tokenize_cases.cases()
@@ -155,21 +154,23 @@ def test_compress_zstd_with_dictionary_on_cuda(cuda, B):
     data = _text(300000, 50) + np.random.default_rng(51).integers(
         0, 256, 40000, dtype=np.uint8).tobytes() + _text(4321, 52)
     blob = train_dictionary([data[i:i + 512] for i in range(0, 8192, 512)], 2048)
-    lz4_torch.reset_launches()
+    mark = launches()
     got = DeviceCompressor(cuda, block_size=B).compress_zstd(data, 3, dictionary=blob)
     key = "lz4_tokenize_u16" if B == 4096 else "lz4_tokenize"
     other = "lz4_tokenize" if B == 4096 else "lz4_tokenize_u16"
-    assert lz4_torch.LAUNCHES[key] > 0 and lz4_torch.LAUNCHES[other] == 0
+    run = launches(mark)
+    assert run[key] > 0 and run[other] == 0
     assert got == DeviceCompressor("cpu", block_size=B).compress_zstd(data, 3, dictionary=blob)
     assert zframe.decompress(got, dictionary=blob) == data
 
 
 def test_lz4_compress_u16_mode_on_cuda(cuda):
     data = _text(500000, 53) + bytes(30001)
-    lz4_torch.reset_launches()
+    mark = launches()
     dc = DeviceCompressor(cuda, block_size=8192)
     got = dc.compress(data)
-    assert lz4_torch.LAUNCHES["lz4_tokenize_u16"] > 0 and lz4_torch.LAUNCHES["lz4_tokenize"] == 0
+    run = launches(mark)
+    assert run["lz4_tokenize_u16"] > 0 and run["lz4_tokenize"] == 0
     assert got == DeviceCompressor("cpu", block_size=8192).compress(data)
     assert lz4frame.decompress_frame(got, len(data)) == data
     cpu, gpu = DeviceCompressor("cpu", block_size=8192).tokenize(data), dc.tokenize(data)
@@ -179,16 +180,16 @@ def test_lz4_compress_u16_mode_on_cuda(cuda):
 def test_entry_and_compress_block_on_cuda(cuda):
     forward, (sample,) = lz4_torch.entry(cuda)
     cpu_forward, (cpu_sample,) = lz4_torch.entry("cpu")
-    lz4_torch.reset_launches()
+    mark = launches()
     got, want = forward(sample), cpu_forward(cpu_sample)
-    assert lz4_torch.LAUNCHES["lz4_tokenize_scatter"] == 1
+    assert launches(mark)["lz4_tokenize_scatter"] == 1
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     for n in (5, 300, 16384, 20001):
         raw = _text(n, n)
         comp = lz4_torch.compress_block(raw, cuda)
         assert comp == lz4_torch.compress_block(raw, "cpu")
         assert lz4block.decompress_block(comp, len(raw)) == raw
-    assert lz4_torch.LAUNCHES["lz4_tokenize_hash"] == 3
+    assert launches(mark)["lz4_tokenize_hash"] == 3
 
 
 def test_replay_kernel_matches_plain(cuda):
@@ -209,13 +210,14 @@ def test_engine_round_trip_launches_both_kernels(cuda):
     data = _text(1 << 20, 8) + bytes(70000)
     engine.install(cuda)
     try:
-        lz4_torch.reset_launches()
+        mark = launches()
         w = Writer.to_heap()
         w.write_archive([("d.bin", data, CompressOptions(CompressionMethod.LZ4, 1))])
         assert Reader.from_memory(w.buffer, shared=True).read_file("d.bin") == data
     finally:
         engine.uninstall()
-    assert lz4_torch.LAUNCHES["lz4_tokenize"] > 0 and lz4_torch.LAUNCHES["lz4_replay"] > 0
+    run = launches(mark)
+    assert run["lz4_tokenize"] > 0 and run["lz4_replay"] > 0
 
 
 _XXH3_EDGES = [241, 255, 256, 257, 1024, 1025, 1088, 1089, 16384, 16385, 65536, 200001]
@@ -279,10 +281,10 @@ def test_xxh3_stream_kernel_matches_plain(cuda, n):
 
 
 def test_xxh3_entry_points_launch_kernels(cuda):
-    xxh3_torch.reset_launches()
+    mark = launches()
     xxh3_torch.xxh3_64_batch(_xxh3_streams([300, 5000], 23), cuda)
     xxh3_torch.xxh3_64(_xxh3_streams([5000], 24)[0], cuda)
-    assert xxh3_torch.LAUNCHES == {"xxh3_batch": 1, "xxh3_stream": 1}
+    assert launches(mark) == {"xxh3_batch": 1, "xxh3_stream": 1}
 
 
 _XXH3_CASES = xxh3_cases.cases()
@@ -455,10 +457,10 @@ def test_compress_zstd_on_cuda_launches_both_kernels(cuda):
     data = (_text(600000, 33) + rec.tobytes()
             + rng.integers(0, 256, 200000, dtype=np.uint8).tobytes() + bytes(70001))
     dc = DeviceCompressor(cuda)
-    huffman_torch.reset_launches()
-    fse_torch.reset_launches()
+    mark = launches()
     got = dc.compress_zstd(data, 3)
-    assert huffman_torch.LAUNCHES["huffman_encode"] > 0 and fse_torch.LAUNCHES["fse_encode"] > 0
+    run = launches(mark)
+    assert run["huffman_encode"] > 0 and run["fse_encode"] > 0
     assert got == dc.compress_zstd(data, 3, device_entropy=False)
     assert native.zstd_decompress(got, len(data)) == data
 
@@ -625,11 +627,11 @@ def test_replay_kernel_matches_plain_on_adversarial_rows(cuda, name):
     error word stays clear)."""
     batch = _REPLAY_CASES[name]
     args = [torch.from_numpy(batch[k]).to(cuda) for k in lz4_torch.REPLAY_ARGS]
-    lz4_torch.reset_launches()
+    mark = launches()
     got = lz4_torch.replay(*args, n_out=batch["n_out"])
     want = lz4_torch.replay_plain(*args, n_out=batch["n_out"])
     torch.cuda.synchronize()
-    assert lz4_torch.LAUNCHES["lz4_replay"] == 1
+    assert launches(mark)["lz4_replay"] == 1
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy(), replay_cases.replay_bytewise(batch))
 
@@ -664,12 +666,12 @@ def _hold_parse(cuda, blocks, sizes):
     """The CUDA parse against ``build_batch``: every table exact, or the
     same first error; returns the outcome."""
     flat, offsets = lz4_torch.pack_blocks(blocks)
-    lz4_torch.reset_launches()
+    mark = launches()
     got, err = _parse_outcome(lambda: lz4_torch.parse_batch(flat.to(cuda), offsets, sizes))
     want, werr = _parse_outcome(lambda: lz4_torch.build_batch(blocks, sizes))
     torch.cuda.synchronize()
     assert err == werr
-    assert lz4_torch.LAUNCHES["lz4_parse"] == (err is None)
+    assert launches(mark)["lz4_parse"] == (err is None)
     if err is None:
         assert got["n_out"] == want["n_out"]
         assert np.array_equal(got["out_len_host"], want["out_len"][:len(blocks)])
@@ -760,10 +762,11 @@ def test_lz4_extract_on_cuda_runs_no_host_parse(cuda, monkeypatch):
     monkeypatch.setattr(lz4_torch, "parse_block_sequences", host_parse)
     raws = [_text(65536, 49), b"a" * 5000, b"", _text(300000, 50)]
     blocks = [lz4block.compress_block(r) for r in raws]
-    lz4_torch.reset_launches()
+    mark = launches()
     got = lz4_torch.DeviceLZ4Replayer(cuda).decompress_blocks(blocks, [len(r) for r in raws])
     assert got == raws
-    assert lz4_torch.LAUNCHES["lz4_parse"] == 1 and lz4_torch.LAUNCHES["lz4_replay"] == 1
+    run = launches(mark)
+    assert run["lz4_parse"] == 1 and run["lz4_replay"] == 1
     data = _text(1 << 20, 51)
     engine.install(cuda)
     try:
@@ -772,7 +775,7 @@ def test_lz4_extract_on_cuda_runs_no_host_parse(cuda, monkeypatch):
         assert Reader.from_memory(w.buffer, shared=True).read_file("d.bin") == data
     finally:
         engine.uninstall()
-    assert lz4_torch.LAUNCHES["lz4_parse"] == 2
+    assert launches(mark)["lz4_parse"] == 2
 
 
 def test_lz4_replayer_errors_on_cuda_match_the_cpu_route(cuda):
@@ -785,11 +788,11 @@ def test_lz4_replayer_errors_on_cuda_match_the_cpu_route(cuda):
                           ([good, bad], [5000, 100]), ([good, good], [5000, 4999])):
         want = _parse_outcome(lambda: lz4_torch.DeviceLZ4Replayer("cpu").decompress_blocks(
             blocks, sizes))[1]
-        lz4_torch.reset_launches()
+        mark = launches()
         with pytest.raises(DecompressError) as e:
             lz4_torch.DeviceLZ4Replayer(cuda).decompress_blocks(blocks, sizes)
         assert str(e.value) == want
-        assert lz4_torch.LAUNCHES["lz4_replay"] == 0
+        assert launches(mark)["lz4_replay"] == 0
 
 
 def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):
@@ -799,21 +802,16 @@ def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):
     try:
         w = Writer.to_heap()
         w.write_archive([("z.bin", data, CompressOptions(CompressionMethod.ZSTD, 3))])
-        huffman_torch.reset_launches()
-        fse_torch.reset_launches()
-        lz4_torch.reset_launches()
+        mark = launches()
         port_zstd.reset_fallbacks()
         r = Reader.from_memory(w.buffer, shared=True)
         assert r.read_file("z.bin") == data
     finally:
         engine.uninstall()
-    launches = {**huffman_torch.LAUNCHES, **fse_torch.LAUNCHES, **lz4_torch.LAUNCHES}
+    run = launches(mark)
     for k in ("huffman_decode", "fse_decode", "rep_totals", "rep_apply", "lz4_replay"):
-        assert launches[k] > 0, k
-    assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
-    e = r.get_file_entry("z.bin")
-    comp = bytes(w.buffer[e.offset:e.offset + e.comp_size])
-    assert extract.decompress_zstd_batched(comp, len(data), device=cuda) == data
+        assert run[k] > 0, k
+    assert port_zstd.FALLBACKS == {"device_to_host": 0}
 
 
 @pytest.mark.parametrize("name", sorted(assemble_cases.cases()))
@@ -824,11 +822,11 @@ def test_assembly_kernels_match_plain_on_cases(cuda, name):
     garbage, on which the kernel and the plain replay differ)."""
     case = assemble_cases.cases()[name]
     want = assemble_cases.assemble(case, "cpu")
-    assemble_torch.reset_launches()
+    mark = launches()
     got = assemble_cases.assemble(case, cuda)
     torch.cuda.synchronize()
-    assert assemble_torch.LAUNCHES["zstd_stitch"] == 1
-    assert assemble_torch.LAUNCHES["zstd_trim"] == 1
+    assert launches(mark)["zstd_stitch"] == 1
+    assert launches(mark)["zstd_trim"] == 1
     for k in ("entry", "bases", "frame_out", "rec", "lits"):
         assert np.array_equal(got[k], want[k]), k
     for g, w in zip(got["segs"], want["segs"]):
@@ -920,14 +918,16 @@ def test_zstd_read_on_cuda_launches_the_assembly_and_copies_nothing_pageable(cud
     data = _text(3 << 20, 63) + rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes()
     comp = native.zstd_compress(data, 3)
     assert extract.decompress_zstd_device(comp, len(data), device=cuda) == data
-    assemble_torch.reset_launches()
     metrics.reset()
+    mark = launches()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         assert extract.decompress_zstd_device(comp, len(data), device=cuda) == data
         torch.cuda.synchronize()
-    assert assemble_torch.LAUNCHES == {"zstd_stitch": 1, "zstd_layout": 1, "zstd_trim": 1}
+    run = launches(mark)
+    assert {k: run[k] for k in ("zstd_stitch", "zstd_layout", "zstd_trim")} == \
+        {"zstd_stitch": 1, "zstd_layout": 1, "zstd_trim": 1}
     assert _waits() == (1, 0)
     names = [e.name for e in prof.events()]
     assert not [n for n in names if "Pageable" in n], sorted(set(names))
@@ -958,10 +958,10 @@ def test_mesh_frames_on_two_shards_equal_one_device(cuda, two_shards, monkeypatc
     rng = np.random.default_rng(51)
     data = _text(5 << 20, 52) + rng.integers(0, 256, 333333, dtype=np.uint8).tobytes()
     one, two = DeviceCompressor(cuda), DeviceCompressor(two_shards)
-    lz4_torch.reset_launches()
+    mark = launches()
     got = two.compress(data)
     # 86 blocks of 64 KiB, 16 a shard: 6 shards in 3 steps, the last short
-    assert lz4_torch.LAUNCHES["lz4_tokenize"] == 6
+    assert launches(mark)["lz4_tokenize"] == 6
     assert got == one.compress(data)
     cut = data[: 1 << 20]
     for entropy in (True, False):

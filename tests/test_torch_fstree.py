@@ -147,7 +147,7 @@ def slice_round_trip(cfg):
 
 def test_slice_reads_equal_content_and_reference(slice_round_trip):
     files, reads, raws, fallbacks = slice_round_trip
-    assert fallbacks == {"device_to_batched": 0, "batched_to_host": 0}
+    assert fallbacks == {"device_to_host": 0}
     for name, data in files:
         assert reads[name] == data, name
         assert ref_frame.decompress(raws[name]) == data, name

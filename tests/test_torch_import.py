@@ -74,7 +74,7 @@ w.write_archive([("d.bin", data, Z.CompressOptions(Z.CompressionMethod.LZ4, 1)),
                  ("z.bin", data, Z.CompressOptions(Z.CompressionMethod.ZSTD, 3))])
 r = Z.Reader.from_memory(w.buffer, shared=True)
 assert r.read_file("d.bin") == data and r.read_file("z.bin") == data
-assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
+assert port_zstd.FALLBACKS == {"device_to_host": 0}
 engine.uninstall()
 
 streams = [data[:n] for n in (0, 240, 241, 5000, 70000)]

@@ -19,6 +19,7 @@ from zpack_tpu.kernels import lz4_jax
 from zpack_tpu_torch.codecs.lz4 import block as lz4block
 from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import lz4_parse_cases, lz4_torch
+from zpack_tpu_torch.utils.observe import launches
 
 torch.set_num_threads(1)
 
@@ -371,11 +372,11 @@ def test_parse_batch_on_cpu_is_build_batch(name):
     case = CASES[name]
     flat, offsets = lz4_torch.pack_blocks(case.blocks)
     assert bytes(flat.numpy()) == b"".join(case.blocks)
-    lz4_torch.reset_launches()
+    mark = launches()
     got, err = _outcome(lambda: lz4_torch.parse_batch(flat, offsets, case.sizes))
     want, werr = _outcome(lambda: lz4_torch.build_batch(case.blocks, case.sizes))
     assert err == werr == case.expect
-    assert lz4_torch.LAUNCHES["lz4_parse"] == 0
+    assert launches(mark)["lz4_parse"] == 0
     if err is None:
         _assert_tables_equal({k: got[k].numpy() for k in lz4_torch.REPLAY_ARGS}
                              | {"n_out": got["n_out"]}, _tables(want))

@@ -11,6 +11,7 @@ from zpack_tpu.errors import DecompressError as JaxDecompressError
 from zpack_tpu.kernels import lz4_jax
 from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import lz4_torch, replay_cases
+from zpack_tpu_torch.utils.observe import launches
 
 torch.set_num_threads(1)
 
@@ -141,6 +142,6 @@ def test_adversarial_cases_cover_what_they_name():
 
 
 def test_replay_cpu_counts_no_launch():
-    lz4_torch.reset_launches()
+    mark = launches()
     _replayer([lz4block.compress_block(b"abc" * 100)], [300])
-    assert lz4_torch.LAUNCHES["lz4_replay"] == 0
+    assert launches(mark)["lz4_replay"] == 0

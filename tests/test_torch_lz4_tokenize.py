@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from test_kernels import _mix
 from zpack_tpu.kernels import lz4_jax, lz4_pallas
 from zpack_tpu_torch.kernels import lz4_torch, tokenize_cases
+from zpack_tpu_torch.utils.observe import launches
 
 torch.set_num_threads(1)
 
@@ -189,10 +190,10 @@ def test_tokenize_batch_rows_are_independent():
 
 
 def test_tokenize_cpu_takes_plain_and_counts_no_launch():
-    lz4_torch.reset_launches()
+    mark = launches()
     for mode in lz4_torch.MODES:
         lz4_torch.tokenize(torch.zeros((1, 1024), dtype=torch.uint8), mode=mode)
-    assert not any(lz4_torch.LAUNCHES.values())
+    assert not any(launches(mark).values())
 
 
 @pytest.mark.parametrize("bad", [

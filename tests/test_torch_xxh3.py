@@ -12,6 +12,7 @@ import torch
 from zpack_tpu.codecs import xxh3 as H
 from zpack_tpu.kernels import xxh3_jax, xxh3_pallas
 from zpack_tpu_torch.kernels import xxh3_torch as X
+from zpack_tpu_torch.utils.observe import launches
 
 torch.set_num_threads(1)
 
@@ -181,10 +182,12 @@ def test_accumulate_stream_rejects(call):
 
 
 def test_cpu_counts_no_launch():
-    X.reset_launches()
+    mark = launches()
     X.xxh3_64_batch(_streams([300, 5000], 13), "cpu")
     X.xxh3_64(_streams([5000], 14)[0], "cpu")
-    assert X.LAUNCHES == {"xxh3_batch": 0, "xxh3_stream": 0}
+    run = launches(mark)
+    assert {k: run[k] for k in ("xxh3_batch", "xxh3_stream")} == \
+        {"xxh3_batch": 0, "xxh3_stream": 0}
 
 
 def test_cuda_without_gpu_raises():

@@ -1,9 +1,9 @@
 """The port's zstd extract path on the CPU against the JAX package:
-``decompress_zstd_device`` and ``decompress_zstd_batched`` return the same
-bytes as the JAX functions of the same names and raise ``DecompressError``
-with the same message on the same corrupted inputs; ``Reader.read_file``
-of a zstd archive goes through the port's codec, which steps down to its
-fallbacks only on ``DecompressError``."""
+``decompress_zstd_device`` returns the same bytes as the JAX function of
+the same name and raises ``DecompressError`` with the same message on the
+same corrupted inputs; ``Reader.read_file`` of a zstd archive goes through
+the port's codec, which steps down to the host decoders only on
+``DecompressError``."""
 
 import numpy as np
 import pytest
@@ -50,20 +50,14 @@ def _port_device(data, max_out=None):
     return extract.decompress_zstd_device(data, max_out, device="cpu")
 
 
-def _port_batched(data, max_out=None):
-    return extract.decompress_zstd_batched(data, max_out, device="cpu")
-
-
 @pytest.mark.parametrize("comp", list(_COMPRESSORS))
 @pytest.mark.parametrize("corpus", ["words", "strided", "rand", "rle"])
-def test_device_and_batched_match_jax(corpus, comp):
+def test_device_route_matches_jax(corpus, comp):
     blob = _corpora()[corpus]
     frame = _COMPRESSORS[comp](blob)
     got = _port_device(frame, len(blob))
     assert got == blob
     assert got == jax_extract.decompress_zstd_device(frame, len(blob))
-    assert _port_batched(frame, len(blob)) == blob == jax_extract.decompress_zstd_batched(
-        frame, len(blob))
 
 
 def test_concatenated_frames_raw_rle_and_skippable():
@@ -79,21 +73,20 @@ def test_concatenated_frames_raw_rle_and_skippable():
     multi = b"".join(parts)
     want = b"".join(blobs[1:]) + b"\x00" * 50000 + raw
     assert _port_device(multi) == want == jax_extract.decompress_zstd_device(multi)
-    assert _port_batched(multi) == want == jax_extract.decompress_zstd_batched(multi)
     assert _port_device(b"") == b"" == jax_extract.decompress_zstd_device(b"")
 
 
 def test_content_checksum_and_size_bound_as_jax():
     blob = _corpora()["strided"][:40000]
     frame = zstandard.ZstdCompressor(level=3, write_checksum=True).compress(blob)
-    assert _port_device(frame) == blob == _port_batched(frame)
+    assert _port_device(frame) == blob
     bad = frame[:-1] + bytes([frame[-1] ^ 1])
-    for port, jax_fn in ((_port_device, jax_extract.decompress_zstd_device),
-                         (_port_batched, jax_extract.decompress_zstd_batched)):
-        assert _outcome(port, bad) == _outcome(jax_fn, bad) \
-            == "DecompressError: content checksum mismatch"
-        assert _outcome(port, frame, len(blob) - 1) == _outcome(jax_fn, frame, len(blob) - 1) \
-            == "DecompressError: zstd output exceeds expected size"
+    jax_fn = jax_extract.decompress_zstd_device
+    assert _outcome(_port_device, bad) == _outcome(jax_fn, bad) \
+        == "DecompressError: content checksum mismatch"
+    assert _outcome(_port_device, frame, len(blob) - 1) \
+        == _outcome(jax_fn, frame, len(blob) - 1) \
+        == "DecompressError: zstd output exceeds expected size"
 
 
 def test_corruption_sweep_raises_where_jax_raises():
@@ -130,7 +123,7 @@ def test_reader_reads_zstd_entries_through_the_port():
             assert r.read_file(name) == data  # verifies the entry's XXH3
     finally:
         codecs.set_device(before)
-    assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
+    assert port_zstd.FALLBACKS == {"device_to_host": 0}
 
 
 def test_codec_steps_down_only_on_decompress_error(monkeypatch):
@@ -149,13 +142,7 @@ def test_codec_steps_down_only_on_decompress_error(monkeypatch):
     monkeypatch.setattr(extract, "decompress_zstd_device", fail(RuntimeError("launch failed")))
     with pytest.raises(RuntimeError, match="launch failed"):
         codec.decompress(frame, len(blob))
-    assert port_zstd.FALLBACKS == {"device_to_batched": 0, "batched_to_host": 0}
+    assert port_zstd.FALLBACKS == {"device_to_host": 0}
     monkeypatch.setattr(extract, "decompress_zstd_device", fail(DecompressError("x")))
-    assert codec.decompress(frame, len(blob)) == blob
-    assert port_zstd.FALLBACKS == {"device_to_batched": 1, "batched_to_host": 0}
-    monkeypatch.setattr(extract, "decompress_zstd_batched", fail(RuntimeError("no kernel")))
-    with pytest.raises(RuntimeError, match="no kernel"):
-        codec.decompress(frame, len(blob))
-    monkeypatch.setattr(extract, "decompress_zstd_batched", fail(DecompressError("y")))
     assert codec.decompress(frame, len(blob)) == blob  # the host decoder
-    assert port_zstd.FALLBACKS == {"device_to_batched": 3, "batched_to_host": 1}
+    assert port_zstd.FALLBACKS == {"device_to_host": 1}

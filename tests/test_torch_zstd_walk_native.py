@@ -2,12 +2,12 @@
 ``native.ZstdWalk``) against the Python walk: on every input both accept,
 the plan ``decompress_zstd_device`` runs on, and the Huffman and FSE
 batches in it, equal what ``walk_zstd``, ``_literal_layout`` and the two
-``build_decode_batch``s make, array for array (the native rows point into
-the entry, the Python ones into a copy of the streams: their bytes are
-compared); on corrupted inputs the native walk accepts exactly what the
-Python walk and the builders accept; without the walk in the library, or
-where it rejects, the Python walk runs and the result is the JAX
-function's."""
+``build_decode_batch``s make, array for array (every row and run indexes
+the plan's ``source``, the entry on the native walk and a copy of the
+streams on the Python one: their bytes are compared); on corrupted
+inputs the native walk accepts exactly what the Python walk and the
+builders accept; without the walk in the library, or where it rejects, the
+Python walk runs and the result is the JAX function's."""
 
 import numpy as np
 import pytest
@@ -36,29 +36,21 @@ def test_the_ports_library_holds_the_walk():
 
 
 def _python_accepts(data: bytes):
-    """The Python plan and its two batches, or None where the walk or a
-    builder raises."""
+    """The Python plan, or None where the walk or a builder raises."""
     try:
         plan = extract._python_plan(data)
-        return (plan, plan.huffman(None) if plan.n_streams else None,
-                plan.sequences(None) if plan.n_items else None)
     except DecompressError:
         return None
+    return None if plan.error is not None else plan
 
 
 def _native_accepts(data: bytes):
-    plan = extract._native_plan(LIB, data)
-    if plan is None:
-        return None
-    entry = np.frombuffer(data, dtype=np.uint8)
-    return (plan, plan.huffman(entry) if plan.n_streams else None,
-            plan.sequences(entry) if plan.n_items else None)
+    return extract._native_plan(LIB, data)
 
 
-def _row_bytes(batch: dict) -> list[bytes]:
-    """Each row's bytes of the batch's payload."""
-    pay = np.asarray(batch["payload"])
-    return [pay[a:a + n].tobytes() for a, n in batch["rows"][:, :2].tolist()]
+def _row_bytes(plan, batch: dict) -> list[bytes]:
+    """Each row's bytes of the plan's source."""
+    return [plan.source[a:a + n].tobytes() for a, n in batch["rows"][:, :2].tolist()]
 
 
 def _run_bytes(source: np.ndarray, runs: np.ndarray) -> list[bytes]:
@@ -68,32 +60,36 @@ def _run_bytes(source: np.ndarray, runs: np.ndarray) -> list[bytes]:
 
 
 def _assert_same(data: bytes) -> None:
-    py, nat = _python_accepts(data), _native_accepts(data)
-    assert py is not None and nat is not None
-    (pp, ph, pf), (np_, nh, nf) = py, nat
-    assert np_.native and not pp.native
-    for field in ("frame_chk", "lit_row", "n_streams", "n_syms", "n_items", "n_seqs"):
+    pp, np_ = _python_accepts(data), _native_accepts(data)
+    assert pp is not None and np_ is not None
+    assert np_.error is None and pp.error is None
+    assert np_.source.dtype == pp.source.dtype == np.uint8
+    assert np_.source.tobytes() == data  # the entry, as it is
+    for field in ("frame_chk", "lit_row"):
         assert getattr(np_, field) == getattr(pp, field), field
     for field in ("blocks", "frame_size"):
         a, b = getattr(np_, field), getattr(pp, field)
         assert a.dtype == b.dtype == np.int64 and np.array_equal(a, b), field
-    # the runs: the same lengths and destinations, and the same bytes, read
-    # from the entry or from the Python walk's copy of them
-    assert np_.run_source is None and np_.runs.dtype == pp.runs.dtype == np.int64
+    # the runs: the same lengths and destinations, and the same bytes of
+    # each plan's source
+    assert np_.runs.dtype == pp.runs.dtype == np.int64
     assert np.array_equal(np_.runs[:, :2], pp.runs[:, :2])
-    assert _run_bytes(np.frombuffer(data, np.uint8), np_.runs) == \
-        _run_bytes(pp.run_source, pp.runs)
+    assert _run_bytes(np_.source, np_.runs) == _run_bytes(pp.source, pp.runs)
+    ph, nh, pf, nf = pp.huffman, np_.huffman, pp.sequences, np_.sequences
     assert (ph is None) == (nh is None) and (pf is None) == (nf is None)
     if ph is not None:
+        assert nh.keys() == ph.keys()
         assert np.array_equal(nh["rows"][:, 1:], ph["rows"][:, 1:])
-        assert _row_bytes(nh) == _row_bytes(ph)
+        assert _row_bytes(np_, nh) == _row_bytes(pp, ph)
         assert nh["tables"].dtype == ph["tables"].dtype
         assert np.array_equal(nh["tables"], ph["tables"])
         assert nh["widest"] == ph["widest"]
     if pf is not None:
+        assert nf.keys() == pf.keys()
         assert np.array_equal(nf["rows"][:, 1:], pf["rows"][:, 1:])
-        assert _row_bytes(nf) == _row_bytes(pf)
-        assert np.all(np.diff(nf["rows"][:, 0]) > 0)  # ascending, as the mesh path needs
+        assert _row_bytes(np_, nf) == _row_bytes(pp, pf)
+        for plan in (np_, pp):  # ascending, as the mesh path needs
+            assert np.all(np.diff(plan.sequences["rows"][:, 0]) > 0)
         for k in ("seq_off", "al", "tables"):
             assert nf[k].dtype == pf[k].dtype and np.array_equal(nf[k], pf[k]), k
 
@@ -271,5 +267,16 @@ def test_a_rejecting_native_walk_hands_over_to_the_python_walk(monkeypatch):
         + bad_inputs[:16:2]
     want = [_outcome(_port, data) for data in inputs]
     monkeypatch.setattr(native.ZstdWalk, "sequences", lambda self: None)
-    assert not extract.zstd_plan(inputs[0]).native
+
+    def python_literals():  # the Python walk's literal sections, opened under the walk
+        return metrics.snapshot().get("torch.zstd_walk.literals", {}).get(
+            "parents", {}).get("torch.zstd_walk", 0)
+
+    before, lits = _walk_calls(), python_literals()
     assert [_outcome(_port, data) for data in inputs] == want
+    after = _walk_calls()
+    # the native walk ran and rejected every input, and the Python walk ran
+    # after it: the two frames alone hold two compressed blocks
+    assert after["torch.zstd_walk"] - before["torch.zstd_walk"] == len(inputs)
+    assert after["torch.zstd_walk.native"] - before["torch.zstd_walk.native"] == len(inputs)
+    assert python_literals() - lits >= 2

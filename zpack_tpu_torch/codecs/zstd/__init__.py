@@ -2,13 +2,14 @@
 
 With a device set in the registry (``codecs.set_device``, through
 ``engine.install``) ``decompress`` tries the fully device-resident decode
-(``decompress_zstd_device``), then the Huffman-only hybrid
-(``decompress_zstd_batched``), then the host decoders, as the JAX codec does
-under ``ZPACK_TPU_ENGINE=tpu``, with one difference: only ``DecompressError``
-takes a step down, so a build, launch or CUDA error propagates.  Each step
-down is counted in :data:`FALLBACKS`.  Frames with a dictionary go to the
-host decoder, and ``compress`` and the streaming decoder (what the CLI's
-``x`` and ``t`` use) stay the native host codecs, as in the JAX package.
+(``decompress_zstd_device``) and takes one step down, to the host decoders,
+on a ``DecompressError`` only: a build, launch or CUDA error propagates.
+The step is counted in :data:`FALLBACKS` as ``device_to_host``.  The JAX
+codec has a middle step (Huffman on the device, sequences on the host); the
+port has none, and the host decoders answer what would reach it.  Frames
+with a dictionary go to the host decoder, and ``compress`` and the
+streaming decoder (what the CLI's ``x`` and ``t`` use) stay the native host
+codecs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from .. import Codec, device, register
 from . import frame
 
 #: steps down from the device decode, counted by ``ZstdCodec.decompress``
-FALLBACKS = {"device_to_batched": 0, "batched_to_host": 0}
+FALLBACKS = {"device_to_host": 0}
 
 
 def reset_fallbacks() -> None:
@@ -68,18 +69,13 @@ class ZstdCodec(Codec):
             if dev is not None:
                 # device engine: fully device-resident entropy decode
                 # (huffman + FSE + rep resolution + sequence execution);
-                # steps down to the literal-stage-only hybrid, then host
-                from ...parallel.extract import (decompress_zstd_batched,
-                                                 decompress_zstd_device)
+                # steps down to the host decoders
+                from ...parallel.extract import decompress_zstd_device
 
                 try:
                     return decompress_zstd_device(bytes(data), uncomp_size, device=dev)
                 except DecompressError:
-                    FALLBACKS["device_to_batched"] += 1
-                try:
-                    return decompress_zstd_batched(bytes(data), uncomp_size, device=dev)
-                except DecompressError:
-                    FALLBACKS["batched_to_host"] += 1
+                    FALLBACKS["device_to_host"] += 1
             if uncomp_size is not None:
                 # native zn_zstd_decompress is internally frame-parallel;
                 # the old >16 MiB host.zstd_decompress_parallel detour

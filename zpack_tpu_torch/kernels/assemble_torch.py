@@ -32,17 +32,9 @@ import numpy as np
 import torch
 
 from ..errors import DecompressError
-from ..utils.observe import metrics
+from ..utils.observe import launched
 
 from . import _build
-
-LAUNCHES = {"zstd_stitch": 0, "zstd_layout": 0, "zstd_trim": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 (REC_HUFFMAN, REC_FSE_CODE, REC_FSE_ITEM, REC_FSE_POS, REC_REP, REC_LAYOUT, REC_BEYOND,
  REC_REPLAY, REC_RESIZE) = range(9)
@@ -275,8 +267,7 @@ def _launch(name: str, dev, *args) -> None:
     with torch.cuda.device(dev):
         rc = getattr(lib, f"zp_{name}")(*args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
-    metrics.count("launch." + name)
+    launched(name)
 
 
 def _ptr(t):

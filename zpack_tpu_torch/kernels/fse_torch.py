@@ -47,7 +47,7 @@ import torch
 from ..codecs.zstd import seq as zseq
 from ..errors import DecompressError
 from ..parallel.mesh import as_mesh, row_ranges
-from ..utils.observe import metrics
+from ..utils.observe import launched, metrics
 
 from . import _build
 from .huffman_torch import scatter_bits
@@ -58,16 +58,6 @@ NSYM = 64
 TABLE = 512
 #: one packed table row: state table, delta_nb_bits, delta_find_state
 ROW = TABLE + 2 * NSYM
-
-#: launches of each hand-written kernel, counted by its wrapper only
-#: (``rep_totals`` and ``rep_apply`` are the two entry points of
-#: ``csrc/rep_resolve.cu``)
-LAUNCHES = {"fse_encode": 0, "fse_decode": 0, "rep_totals": 0, "rep_apply": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # dense numpy versions of seq.ll_code / seq.ml_code (copies of fse_jax's) ----
@@ -224,8 +214,7 @@ def encode_seq_streams(fields, seq_off, tables, al, word_off, *, n_words: int):
     if B == 0:
         return words, total
     _encode_launch(args, words, total, 3)
-    LAUNCHES["fse_encode"] += 1
-    metrics.count("launch.fse_encode")
+    launched("fse_encode")
     return words, total
 
 
@@ -554,8 +543,7 @@ def decode_seq_streams(payload, rows, seq_off, al, tables, *, shape=None):
             rec.data_ptr(), lls.data_ptr(), mls.data_ptr(), ovs.data_ptr(), pos_f.data_ptr(),
             err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fse_decode")
-    LAUNCHES["fse_decode"] += 1
-    metrics.count("launch.fse_decode")
+    launched("fse_decode")
     return lls, mls, ovs, pos_f, err
 
 
@@ -781,6 +769,8 @@ REP_TILE = 1024
 
 
 def _rep_launch(name: str, tensors: tuple, outs: tuple, B: int) -> None:
+    """Launch ``name``, ``rep_totals`` or ``rep_apply``: the two entry points of
+    ``csrc/rep_resolve.cu``."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or not t.is_contiguous():
@@ -793,8 +783,7 @@ def _rep_launch(name: str, tensors: tuple, outs: tuple, B: int) -> None:
                                         *(t.data_ptr() for t in outs),
                                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
-    metrics.count("launch." + name)
+    launched(name)
 
 
 def rep_totals(ovs, lls, mls, seq_off):

@@ -36,21 +36,13 @@ import torch
 
 from ..errors import CompressError, DecompressError
 from ..parallel.mesh import as_mesh, row_ranges
-from ..utils.observe import metrics
+from ..utils.observe import launched, metrics
 
 from . import _build
 
 #: zstd huffman code-length limit (RFC 8878 §4.2.1)
 MAX_BITS = 11
 _M32 = 0xFFFFFFFF
-
-#: launches of each hand-written kernel, counted by its wrapper only
-LAUNCHES = {"huffman_encode": 0, "huffman_decode": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def scatter_bits(n_words: int, pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -172,8 +164,7 @@ def encode_streams(syms, rows, tables, *, n_words: int):
     total = torch.empty(rows.shape[0], dtype=torch.int32, device=syms.device)
     if rows.shape[0]:
         _encode_launch(args, words, total)
-        LAUNCHES["huffman_encode"] += 1
-        metrics.count("launch.huffman_encode")
+        launched("huffman_encode")
     return words, total
 
 
@@ -457,8 +448,7 @@ def decode_streams(payload, rows, tables, *, n_out: int, widest: int | None = No
             tables.shape[0], out.data_ptr(), n_out, final.data_ptr(), stage,
             torch.cuda.current_stream(payload.device).cuda_stream)
     _build.check(rc, "huffman_decode")
-    LAUNCHES["huffman_decode"] += 1
-    metrics.count("launch.huffman_decode")
+    launched("huffman_decode")
     return out, final
 
 

@@ -37,7 +37,7 @@ import torch
 
 from ..codecs.lz4 import block as lz4block
 from ..errors import DecompressError
-from ..utils.observe import metrics
+from ..utils.observe import launched, metrics
 
 from . import _build
 
@@ -52,22 +52,14 @@ _HASH_MUL = 2654435761
 #: the tokenizer's wire formats, in the order of the kernel's mode argument
 MODES = ("pair", "u16", "hash", "scatter")
 
-#: launches of each hand-written kernel, counted by its wrapper only: the
-#: tokenizer once per launch under its mode's name ("pair" is the main
-#: path's ``lz4_tokenize``).  Every tokenizer launch also reduces its rows'
-#: size estimate, so the estimate's launches are the sum of the four modes'.
-#: The parse counts once per batch (its walk and its layout)
-LAUNCHES = {"lz4_tokenize": 0, "lz4_tokenize_u16": 0, "lz4_tokenize_hash": 0,
-            "lz4_tokenize_scatter": 0, "lz4_parse": 0, "lz4_replay": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def launch_key(mode: str) -> str:
-    """The key of :data:`LAUNCHES` that counts the tokenizer's mode."""
+    """The kernel name a tokenizer launch in ``mode`` is recorded under
+    (``launch.<name>``; "pair" is the main path's ``lz4_tokenize``).  Every
+    tokenizer launch also reduces its rows' size estimate, so the
+    estimate's launches are the sum of the four modes'.  The parse records
+    one ``lz4_parse`` a batch (its walk and its layout), the replay one
+    ``lz4_replay`` a launch."""
     return "lz4_tokenize" if mode == "pair" else f"lz4_tokenize_{mode}"
 
 
@@ -239,8 +231,7 @@ def tokenize_est(blocks: torch.Tensor, depth: int = 2, capj: int = CAPJ,
             arrays[1].data_ptr() if len(arrays) > 1 else None, est.data_ptr(),
             torch.cuda.current_stream(blocks.device).cuda_stream)
     _build.check(rc, "lz4_tokenize")
-    LAUNCHES[launch_key(mode)] += 1
-    metrics.count("launch." + launch_key(mode))
+    launched(launch_key(mode))
     return arrays, est
 
 
@@ -771,8 +762,7 @@ def parse_batch(payload: torch.Tensor, offsets, out_sizes) -> dict:
         raise DecompressError("block output exceeds declared size")
     bp, S, L, n_out = _batch_shape(n_seq, lit_total, out_len)
     out = _parse_layout(payload, w, bp, S, L)
-    LAUNCHES["lz4_parse"] += 1
-    metrics.count("launch.lz4_parse")
+    launched("lz4_parse")
     return {**out, "n_out": n_out, "out_len_host": out_len}
 
 
@@ -891,8 +881,7 @@ def replay_enqueue(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq, out_
             f.data_ptr(), fstride, live.data_ptr(), state.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lz4_replay")
-    LAUNCHES["lz4_replay"] += 1
-    metrics.count("launch.lz4_replay")
+    launched("lz4_replay")
     return out, state
 
 

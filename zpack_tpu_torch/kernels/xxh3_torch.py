@@ -30,23 +30,15 @@ import numpy as np
 import torch
 
 from ..codecs import xxh3 as H
-from ..utils.observe import metrics
+from ..utils.observe import launched
 
 from . import _build
-
-#: launches of each hand-written kernel, counted by its wrapper only
-LAUNCHES = {"xxh3_batch": 0, "xxh3_stream": 0}
 
 _M32 = 0xFFFFFFFF
 _STRIPE = H.STRIPE_LEN
 _SPB = H.STRIPES_PER_BLOCK
 _BLOCK = H.BLOCK_LEN
 _ALIGN = 16  # each packed stream starts on a multiple of this
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _secret_words(offset: int, count: int = 8) -> torch.Tensor:
@@ -289,8 +281,7 @@ def accumulate_batch(flat: torch.Tensor, offsets: torch.Tensor, secret: torch.Te
             acc.data_ptr(), hashes.data_ptr(),
             torch.cuda.current_stream(flat.device).cuda_stream)
     _build.check(rc, "xxh3_batch")
-    LAUNCHES["xxh3_batch"] += 1
-    metrics.count("launch.xxh3_batch")
+    launched("xxh3_batch")
     return acc, hashes
 
 
@@ -362,8 +353,7 @@ def accumulate_stream(data: torch.Tensor, secret: torch.Tensor):
             acc.data_ptr(), hashes.data_ptr(),
             torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(rc, "xxh3_stream")
-    LAUNCHES["xxh3_stream"] += 1
-    metrics.count("launch.xxh3_stream")
+    launched("xxh3_stream")
     return acc, hashes
 
 

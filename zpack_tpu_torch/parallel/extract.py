@@ -10,20 +10,24 @@ Counterpart of ``zpack_tpu/parallel/extract.py``.
   decoding sequential; the codec sends those to the host decoder before
   calling here.
 * :func:`decompress_zstd_device`: the host walks frame and block headers
-  and builds the decode tables (the native walk, ``native/zstd_walk.cpp``,
-  in two calls an entry; :func:`walk_zstd` where the library lacks it or
-  rejects the input), then the device decodes every Huffman literal
-  stream, every FSE sequence section and every repeat offset, the assembly
-  lays the sequences out per frame with torch ops, and each frame replays
-  as one row of the LZ4 replayer.
-* :func:`decompress_zstd_batched`, its fallback: Huffman literals on the
-  device, sequences on the host.
+  and builds the decode tables (:func:`zstd_plan`), then the device decodes
+  every Huffman literal stream, every FSE sequence section and every repeat
+  offset, the assembly lays the sequences out per frame, and each frame
+  replays as one row of the LZ4 replayer.  On a ``DecompressError`` the
+  codec takes one step down, to the host decoders.
+
+The walk is the native one (``native/zstd_walk.cpp``, two calls an entry)
+where the library has it and accepts the input.  The Python walk
+(:func:`walk_zstd`) stays beside it: it is the only walk where the native
+library is absent (``--engine python``, a host with no compiler), and the
+reference the native walk is held to.  Both fill the same
+:class:`ZstdPlan`.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -174,10 +178,10 @@ class ZstdWalk(NamedTuple):
     seq_items: list       # (bitstream, ll, of, ml table, nb_seq) per block with sequences
 
 
-def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
+def walk_zstd(data: bytes) -> ZstdWalk:
     """Walk concatenated zstd frames without decoding an entropy stream:
     frame and block headers, literal-section headers and Huffman tables,
-    and (with ``sequences``) the sequence-section headers and FSE tables.
+    and the sequence-section headers and FSE tables.
     Copy of the structural walk of ``extract.decompress_zstd_device``
     (``extract.py:275-361``); dictionary frames and reserved block types
     raise DecompressError there and here.  The device route runs it where
@@ -246,12 +250,11 @@ def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
                         tables.append(table)
                         n_syms.append(cnt)
                 slot = None
-                if sequences:
-                    with metrics.phase("torch.zstd_walk.sequences", bsize - lits_end):
-                        nb, bs = fse_torch.parse_headers(payload, lits_end, ftables)
-                    if nb:
-                        slot = len(seq_items)
-                        seq_items.append((bs, ftables.ll, ftables.of, ftables.ml, nb))
+                with metrics.phase("torch.zstd_walk.sequences", bsize - lits_end):
+                    nb, bs = fse_torch.parse_headers(payload, lits_end, ftables)
+                if nb:
+                    slot = len(seq_items)
+                    seq_items.append((bs, ftables.ll, ftables.of, ftables.ml, nb))
                 blocks.append(ZstdBlock(btype, payload, 0, lits, lits_end, slot))
             else:
                 raise DecompressError("reserved block type")
@@ -265,33 +268,6 @@ def walk_zstd(data: bytes, *, sequences: bool = True) -> ZstdWalk:
             pos += 4
         frames.append((header, blocks, chk))
     return ZstdWalk(frames, streams, tables, n_syms, seq_items)
-
-
-def decompress_zstd_batched(data: bytes, max_out: int | None = None, *, device) -> bytes:
-    """One-shot decompress of concatenated zstd frames with every Huffman
-    literal stream decoded in one launch on ``device`` and the sequences
-    decoded and executed per block on the host
-    (``extract.decompress_zstd_batched``; no dictionaries)."""
-    w = walk_zstd(data, sequences=False)
-    decoded = TorchHuffmanDecoder(device).decode_batch(w.streams, w.tables, w.n_syms)
-    out = bytearray()
-    for header, blocks, chk in w.frames:
-        dec = zframe.FrameDecoder(header)
-        for b in blocks:
-            lits_pos = None
-            if b.btype == zframe.BLOCK_COMPRESSED:
-                if b.lits[0] == "raw":
-                    lits = b.lits[1]
-                else:
-                    _, base, cnt, _ = b.lits
-                    lits = b"".join(a.tobytes() for a in decoded[base:base + cnt])
-                lits_pos = (lits, b.lits_end)
-            out += dec.decode_block(b.btype, b.payload, b.rle_size, lits_pos=lits_pos)
-        if chk is not None and (dec.hasher.digest() & 0xFFFFFFFF) != chk:
-            raise DecompressError("content checksum mismatch")
-    if max_out is not None and len(out) > max_out:
-        raise DecompressError("zstd output exceeds expected size")
-    return bytes(out)
 
 
 def _literal_layout(w: ZstdWalk):
@@ -331,30 +307,29 @@ def _runs(parts: list[tuple]) -> tuple:
 
 
 class ZstdPlan(NamedTuple):
-    """What the device route needs of an entry's walk, from either walk."""
+    """What the device route needs of an entry's walk; both walks fill it
+    alike."""
     frame_chk: list       # each frame's content checksum, or None
     frame_size: np.ndarray  # (F,) int64: each frame's declared content size, or -1
     blocks: np.ndarray    # (NB, 3) int64: each block's frame, literal bytes, sequence item or -1
     lit_row: int          # LB: frame j's literals fill row j of an (F, LB) table
-    n_streams: int        # Huffman streams
-    n_syms: int           # their symbols
-    #: the Huffman batch (``huffman_torch.build_decode_batch``'s arrays),
-    #: given the entry where the batch points into it (None: "the entry")
-    huffman: Callable
-    #: the raw and RLE literal runs (length, destination, source, step), and
-    #: the bytes they are read from (None: the entry)
+    #: (N,) uint8: the bytes every Huffman row, FSE row and literal run indexes
+    source: np.ndarray
+    #: the Huffman batch (``rows``, ``tables``, ``widest``), or None
+    huffman: dict | None
+    #: the FSE batch (``rows``, ``seq_off``, ``al``, ``tables``), or None
+    sequences: dict | None
+    #: the raw and RLE literal runs (length, destination, source, step)
     runs: np.ndarray
-    run_source: np.ndarray | None
-    n_items: int          # blocks with sequences
-    n_seqs: int           # their sequences
-    sequences: Callable   # the FSE batch, likewise
-    native: bool          # the batches point into the entry
+    #: the FSE batch's own error, raised after the Huffman check
+    error: DecompressError | None
 
 
 def _python_plan(data: bytes) -> ZstdPlan:
-    """The plan of :func:`walk_zstd` and :func:`_literal_layout`; the
-    batches are built when asked for, so their errors can keep their
-    order."""
+    """The plan of :func:`walk_zstd`, :func:`_literal_layout` and the two
+    ``build_decode_batch``s: ``source`` is the Huffman streams, the FSE
+    bitstreams and the raw literal runs back to back.  The FSE batch's
+    error waits in ``error``, so the errors keep their order."""
     w = walk_zstd(data)
     with metrics.phase("torch.zstd_walk.layout", len(w.streams)):
         LB, stream_dst, raw_parts = _literal_layout(w)
@@ -362,20 +337,32 @@ def _python_plan(data: bytes) -> ZstdPlan:
                             -1 if b.slot is None else b.slot)
                            for j, (_, bl, _) in enumerate(w.frames) for b in bl],
                           dtype=np.int64).reshape(-1, 3)
-        run_source, runs = _runs(raw_parts)
+        run_bytes, runs = _runs(raw_parts)
         size = [-1 if h.content_size is None or h.content_size >= 2**63 else h.content_size
                 for h, _, _ in w.frames]
+        parts, huf, fse, error = [], None, None, None
+        if w.streams:
+            batch = huffman_torch.build_decode_batch(w.streams, w.tables, w.n_syms, stream_dst)
+            huf = {k: batch[k] for k in ("rows", "tables", "widest")}
+            parts.append(batch["payload"])
+        if w.seq_items:
+            try:
+                batch = fse_torch.build_decode_batch(w.seq_items)
+            except DecompressError as e:
+                error = e
+            else:  # its rows move past the Huffman streams
+                fse = {k: batch[k] for k in ("seq_off", "al", "tables")}
+                fse["rows"] = batch["rows"] + [sum(map(len, parts)), 0, 0]
+                parts.append(batch["payload"])
+        runs[:, 2] += sum(map(len, parts))
         return ZstdPlan(
             [chk for _, _, chk in w.frames], np.array(size, dtype=np.int64), blocks, LB,
-            len(w.streams), sum(w.n_syms),
-            lambda entry: huffman_torch.build_decode_batch(w.streams, w.tables, w.n_syms,
-                                                           stream_dst),
-            runs, run_source, len(w.seq_items), sum(it[4] for it in w.seq_items),
-            lambda entry: fse_torch.build_decode_batch(w.seq_items), False)
+            np.concatenate(parts + [run_bytes]), huf, fse, runs, error)
 
 
 def _native_plan(lib, data: bytes) -> ZstdPlan | None:
-    """The plan of the native walk, or None where it rejects the input."""
+    """The plan of the native walk, or None where it rejects the input:
+    ``source`` is the entry itself."""
     with native.ZstdWalk(lib, data) as nw:
         with metrics.phase("torch.zstd_walk.native", len(data)):
             with metrics.phase("torch.zstd_walk.literals", len(data)):
@@ -389,14 +376,13 @@ def _native_plan(lib, data: bytes) -> ZstdPlan | None:
     with metrics.phase("torch.zstd_walk.layout", len(lits["streams"])):
         streams, blocks = lits["streams"], lits["blocks"]
         huf = {"rows": streams, "tables": lits["tables"],
-               "widest": int(streams[:, 1].max(initial=0))}
-        fse = {k: seqs[k] for k in ("rows", "seq_off", "al", "tables")}
+               "widest": int(streams[:, 1].max(initial=0))} if len(streams) else None
+        fse = {k: seqs[k] for k in ("rows", "seq_off", "al", "tables")} \
+            if len(seqs["rows"]) else None
         return ZstdPlan(
             [None if c < 0 else c for c in lits["frame_chk"].tolist()], lits["frame_size"],
-            np.stack([blocks[:, 0], blocks[:, 4], seqs["slots"]], axis=1),
-            lits["lit_row"], len(streams), int(streams[:, 3].sum()),
-            lambda entry: {**huf, "payload": entry}, lits["runs"], None, len(fse["rows"]),
-            int(fse["seq_off"][-1]), lambda entry: {**fse, "payload": entry}, True)
+            np.stack([blocks[:, 0], blocks[:, 4], seqs["slots"]], axis=1), lits["lit_row"],
+            np.frombuffer(data, dtype=np.uint8), huf, fse, lits["runs"], None)
 
 
 def zstd_plan(data: bytes) -> ZstdPlan:
@@ -483,8 +469,9 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
        host knows from them: each block's frame, literal bytes and
        sequence item, the segment table's width, each frame's declared
        size (:func:`predicted_sizes`);
-    2. all of it, the entry included, up in one pinned copy
-       (:func:`stage`, the phase ``torch.zstd_stage``);
+    2. all of it, with the plan's ``source`` (on the native walk the entry
+       itself), up in one pinned copy (:func:`stage`, the phase
+       ``torch.zstd_stage``);
     3. every Huffman literal stream in one launch, each written straight to
        its place in its frame's literal row;
     4. every FSE sequence section in one launch;
@@ -513,76 +500,66 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
     mesh, each checked where it runs; the rest runs on ``device``.
 
     Raises DecompressError, with the messages of the JAX function and in
-    its order, on malformed input; the codec then falls back
-    (dictionaries, offset codes above 30)."""
+    its order, on malformed input and on what the device does not decode
+    (offset codes above 30); the codec then takes its one step down, to the
+    host decoders, counted as ``device_to_host``."""
     dev = torch.device(device)
     with metrics.phase("torch.zstd_walk", len(data)):
         plan = zstd_plan(data)
     F = len(plan.frame_chk)
     result = b""
     if F:
-        result = _decode_planned(plan, data, max_out, dev, mesh)
+        result = _decode_planned(plan, max_out, dev, mesh)
     if max_out is not None and len(result) > max_out:
         raise DecompressError("zstd output exceeds expected size")
     return result
 
 
-def _decode_planned(plan: ZstdPlan, data: bytes, max_out, dev, mesh) -> bytes:
+def _decode_planned(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
     """Steps 2 to 7 of :func:`decompress_zstd_device` for an entry of at
     least one frame."""
-    F, LB, B = len(plan.frame_chk), plan.lit_row, plan.n_items
+    F, LB, huf, fse = len(plan.frame_chk), plan.lit_row, plan.huffman, plan.sequences
     blk = plan.blocks
     slot = blk[:, 2]
-    huf = plan.huffman(None) if plan.n_streams else None
-    deferred = None  # the FSE batch's own error comes after the Huffman check
-    try:
-        fse = plan.sequences(None) if B else None
-    except DecompressError as e:
-        fse, deferred = None, e
+    B = 0 if fse is None else len(fse["rows"])
     seq_off = fse["seq_off"] if fse is not None else np.zeros(1, np.int64)
+    n_syms, n_seqs = 0 if huf is None else int(huf["rows"][:, 3].sum()), int(seq_off[-1])
     sizes = predicted_sizes(plan, max_out)
     up = {"blk": blk, "frame_first": np.searchsorted(blk[:, 0], np.arange(F + 1)),
           "seq_off": seq_off, "runs": plan.runs,
           "declared": sizes if sizes is not None else np.full(F, -1, np.int64)}
     if sizes is not None:
         up["offsets"] = _frame_offsets(sizes)
-    if plan.native:  # the batches and the runs point into the entry
-        up["entry"] = data
-    else:
-        up["run_src"] = plan.run_source
+    up["source"] = plan.source
     if mesh is None:
         if huf is not None:
-            up.update({f"huf_{k}": huf[k] for k in huffman_torch.DECODE_ARGS
-                       if huf[k] is not None})
+            up.update({f"huf_{k}": huf[k] for k in ("rows", "tables")})
         if fse is not None:
-            up.update({f"fse_{k}": fse[k] for k in ("payload", "rows", "al", "tables")
-                       if fse[k] is not None})
-    with metrics.phase("torch.zstd_stage", sum(len(v) if isinstance(v, bytes) else v.nbytes
-                                               for v in up.values())):
+            up.update({f"fse_{k}": fse[k] for k in ("rows", "al", "tables")})
+    with metrics.phase("torch.zstd_stage", sum(v.nbytes for v in up.values())):
         d = stage(up, dev)
-    entry = d.get("entry")
+    source = d["source"]
     shards = dev if mesh is None else mesh
     i32 = torch.int32
 
-    with metrics.phase("torch.huffman_decode", plan.n_syms):
+    with metrics.phase("torch.huffman_decode", n_syms):
         final = torch.zeros(0, dtype=i32, device=dev)
         if huf is None:
             lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
         elif mesh is None:
             lit_flat, final = huffman_torch.decode_streams(
-                d.get("huf_payload", entry), d["huf_rows"], d["huf_tables"], n_out=F * LB,
-                widest=huf["widest"])
+                source, d["huf_rows"], d["huf_tables"], n_out=F * LB, widest=huf["widest"])
         else:  # the shards' own uploads and read-back, so checked here
             lit_flat, fin = TorchHuffmanDecoder(shards).decode_built(
-                huf if huf["payload"] is not None else {**huf, "payload": entry}, F * LB)
+                {**huf, "payload": source}, F * LB)
             if (fin != 0).any():
                 raise DecompressError("huffman stream not fully consumed")
             lit_flat = lit_flat.to(dev)
-        if deferred is not None:  # no FSE batch: the Huffman check, then its error
+        if plan.error is not None:  # no FSE batch: the Huffman check, then its error
             with metrics.phase("torch.huffman_decode.wait", final.nbytes):
                 if bool((final != 0).any()):
                     raise DecompressError("huffman stream not fully consumed")
-            raise deferred
+            raise plan.error
 
     # the segment table's width: a frame's sequences, and a segment a block
     # for its literal tail or its literals alone
@@ -591,14 +568,14 @@ def _decode_planned(plan: ZstdPlan, data: bytes, max_out, dev, mesh) -> bytes:
     SB = max(int(np.bincount(blk[:, 0], per_block, minlength=F).max()), 1)
     seq_d = d["seq_off"]
     if B:
-        with metrics.phase("torch.fse_decode", plan.n_seqs):
+        with metrics.phase("torch.fse_decode", n_seqs):
             if mesh is None:
                 lls, mls, ovs, pos_f, ferr = fse_torch.decode_seq_streams(
-                    d.get("fse_payload", entry), d["fse_rows"], seq_d, d["fse_al"],
-                    d["fse_tables"], shape=fse_torch.decode_shape(fse["rows"], seq_off))
+                    source, d["fse_rows"], seq_d, d["fse_al"], d["fse_tables"],
+                    shape=fse_torch.decode_shape(fse["rows"], seq_off))
             else:  # the shards raise their own errors, in item order
                 flat, _ = fse_torch.TorchSequenceDecoder(shards).decode_built(
-                    fse if fse["payload"] is not None else {**fse, "payload": entry})
+                    {**fse, "payload": source})
                 lls, mls, ovs = (t.to(dev) for t in flat)
                 pos_f, ferr = torch.zeros(B, dtype=i32, device=dev), \
                     torch.zeros(B, dtype=torch.bool, device=dev)
@@ -614,7 +591,7 @@ def _decode_planned(plan: ZstdPlan, data: bytes, max_out, dev, mesh) -> bytes:
 
     cap = int(sizes.max()) if sizes is not None else assemble_torch.NONE
     if B:
-        with metrics.phase("torch.rep_resolve", plan.n_seqs):
+        with metrics.phase("torch.rep_resolve", n_seqs):
             sel, val, sums = fse_torch.rep_totals(ovs, lls, mls, seq_d)
     else:
         sel = val = torch.zeros((0, 3), dtype=i32, device=dev)
@@ -630,7 +607,7 @@ def _decode_planned(plan: ZstdPlan, data: bytes, max_out, dev, mesh) -> bytes:
     with metrics.phase("torch.zstd_assemble", 0):
         seg = assemble_torch.layout(
             d["blk"], d["frame_first"], bases, seq_d, lls, mls, offs, sums, rep_err, rec, SB=SB,
-            runs=d["runs"], run_src=d.get("run_src", entry), lits=lit_flat)
+            runs=d["runs"], run_src=source, lits=lit_flat)
         if sizes is None:  # the exact path: the sizes first
             metrics.count("torch.zstd_resize")
             with metrics.phase("torch.zstd_assemble.wait", rec.nbytes):

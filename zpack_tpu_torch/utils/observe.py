@@ -15,7 +15,8 @@ device (an event or stream synchronisation, a device-to-host read, a
 blocking copy); its bytes are those it brings to the host.  A count
 (:meth:`Metrics.count`) is an event of no duration recorded the same way,
 under the phase open when it happened: each hand-written kernel launch is
-one, named ``launch.<kernel>``.
+one, named ``launch.<kernel>`` (:func:`launched`; :func:`launches` reads
+them back).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import contextlib
 import json
 import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from dataclasses import dataclass, field
 
 
@@ -140,6 +141,21 @@ class Metrics:
 
 #: process-global metrics registry
 metrics = Metrics()
+
+
+def launched(kernel: str) -> None:
+    """Record one launch of the hand-written kernel ``kernel``: the count
+    ``launch.<kernel>``, under the phase open on this thread."""
+    metrics.count("launch." + kernel)
+
+
+def launches(since: Counter | None = None) -> Counter:
+    """Every kernel's launches in the registry, by kernel, less those of
+    ``since`` (an earlier return of this function): the launches since that
+    mark.  A kernel not launched reads 0."""
+    now = Counter({k[len("launch."):]: s["calls"] for k, s in metrics.snapshot().items()
+                   if k.startswith("launch.")})
+    return now if since is None else now - since
 
 
 @contextlib.contextmanager

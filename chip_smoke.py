@@ -60,8 +60,9 @@
    kernels must have been launched by that run (a 1 MiB cut must also
    decode with the python oracle);
 7. zstd extract: the Writer with the port's engine writes the 64 MiB corpus
-   as one zstd level-3 entry (16 frames); a first ``decompress_zstd_device``
-   run over its bytes, its launches counted from there, records the inputs
+   as one zstd level-3 entry (16 frames); a first read through the kernels'
+   Python wrappers (``zstd_python_route``, the route of the CPU and of a
+   mesh), its launches counted from there, records the inputs
    of every kernel it launches (each once); the Huffman decode, FSE decode
    and repeat-offset kernels, the assembly's stitch, layout and trim (every
    output, the check record and the literal rows), and the replay on the
@@ -76,7 +77,8 @@
    1,000 short ones; exact); then
    ``Reader.read_file`` of the entry runs twice, its launches counted from
    there and the codec's fallback count at zero: the corpus must come back
-   (XXH3 verified), every one of those kernels must have been launched and no
+   (XXH3 verified), every one of those kernels must have been launched, each
+   read enqueued from native code (one ``torch.zstd_enqueue`` a read) and no
    step down to the host taken; ``native.zstd_decompress`` of the entry is
    timed for scale; and ``decompress_zstd_device`` must raise
    DecompressError on a frame with one corrupted byte;
@@ -1208,14 +1210,23 @@ def recording_kernels(modules: dict):
             setattr(mod, attr, fn)
 
 
+def zstd_python_route(extract, comp: bytes, n: int, device) -> bytes:
+    """The zstd read through the kernels' Python wrappers on ``device``, the
+    route of the CPU and of a mesh, whose calls ``recording_kernels`` sees
+    (on a card the read's main path enqueues the same kernels from native
+    code, ``kernels/zstd_chain.py``)."""
+    return extract._decode_python(extract.zstd_plan(comp), n, torch.device(device))
+
+
 def phase_zstd_extract_kernels(comp: bytes, corpus: bytes, device, extract, modules) -> dict:
-    """Record each kernel's inputs on a first run of the device path, then
-    hold each kernel against its plain version on them and time both (each
-    kernel 10 times, its plain version once)."""
+    """Record each kernel's inputs on a first run of the device path
+    through the Python wrappers, then hold each kernel against its plain
+    version on them and time both (each kernel 10 times, its plain version
+    once)."""
     mark = launch_mark()
     with recording_kernels(modules) as calls:
         t0 = time.perf_counter()
-        out = extract.decompress_zstd_device(comp, len(corpus), device=device)
+        out = zstd_python_route(extract, comp, len(corpus), device)
         print(f"zstd extract first run (records the kernels' inputs): "
               f"{time.perf_counter() - t0:.3f} s")
     if out != corpus:
@@ -1289,7 +1300,8 @@ def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device) -> dict:
             print(f"zstd extract main path rep {rep}: {mb / t:.2f} MB/s ({t:.3f} s)")
         launches = launch_counts(mark, EXTRACT_KERNELS)
         fallbacks = dict(port_zstd.FALLBACKS)
-        print("zstd extract main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
+        snap = metrics.snapshot()
+        print("zstd extract main path phases: " + json.dumps(snap, sort_keys=True))
     finally:
         engine.uninstall()
     print(f"zstd extract main path launches: {json.dumps(launches)}, "
@@ -1299,6 +1311,8 @@ def phase_zstd_extract_main(buf, comp: bytes, corpus: bytes, device) -> dict:
             raise AssertionError(f"zstd extract main path never launched {k}")
     if any(fallbacks.values()):
         raise AssertionError(f"zstd extract main path fell back: {fallbacks}")
+    if snap.get("torch.zstd_enqueue", {}).get("calls") != 2 or "torch.zstd_stage" in snap:
+        raise AssertionError("zstd extract main path did not enqueue each read from native code")
     t0 = time.perf_counter()
     nat = native.zstd_decompress(comp, len(corpus))
     t_nat = time.perf_counter() - t0

@@ -4,8 +4,8 @@
     python3 scripts/torch_fse_profile.py [SOURCE.cu ...]
 
 Writes the 64 MiB corpus of ``chip_smoke.py`` as one zstd level-3 entry,
-records the inputs of the sequence decode of one read
-(``decompress_zstd_device``), and for each source (by default the repo's
+records the inputs of the sequence decode of one read through the kernels'
+Python wrappers (``chip_smoke.zstd_python_route``), and for each source (by default the repo's
 ``zpack_tpu_torch/csrc/fse_decode.cu``; more copies to compare variants,
 each with the C entry point ``zp_fse_decode`` of the repo's) compiles it
 alone, holds its outputs against ``decode_seq_streams_plain`` (exact), and
@@ -87,7 +87,7 @@ def main() -> int:
     modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch,
                "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch}
     with cs.recording_kernels(modules) as calls:
-        if extract.decompress_zstd_device(comp, len(corpus), device=dev) != corpus:
+        if cs.zstd_python_route(extract, comp, len(corpus), dev) != corpus:
             raise AssertionError("zstd extract does not give the corpus back")
     args = calls["fse_decode"][0][0]
     want = fse_torch.decode_seq_streams_plain(*args)

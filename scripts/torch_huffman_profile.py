@@ -5,8 +5,8 @@ split the extract path's ``torch.huffman_decode`` phase into its steps.
     python3 scripts/torch_huffman_profile.py [SOURCE.cu [-DNAME[=VALUE] | -FLAG ...] ...]
 
 Writes the 64 MiB corpus of ``chip_smoke.py`` as one zstd level-3 entry and
-records the inputs of the Huffman decode of one read
-(``decompress_zstd_device``).  Each variant is a source (by default the
+records the inputs of the Huffman decode of one read through the kernels'
+Python wrappers (``chip_smoke.zstd_python_route``).  Each variant is a source (by default the
 repo's ``zpack_tpu_torch/csrc/huffman_decode.cu``) with the ``-D`` and
 other ``nvcc`` arguments that follow it, and has the C entry points of the
 repo's.  Each variant is compiled alone, held against
@@ -171,7 +171,7 @@ def main() -> int:
     modules = {"huffman_decode": huffman_torch, "fse_decode": fse_torch,
                "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch}
     with cs.recording_kernels(modules) as calls:
-        if extract.decompress_zstd_device(comp, len(corpus), device=dev) != corpus:
+        if cs.zstd_python_route(extract, comp, len(corpus), dev) != corpus:
             raise AssertionError("zstd extract does not give the corpus back")
     args, kwargs = calls["huffman_decode"][0]
     rows = args[1]

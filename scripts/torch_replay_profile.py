@@ -43,7 +43,7 @@ def main() -> int:
                "rep_totals": fse_torch, "rep_apply": fse_torch, "lz4_replay": lz4_torch}
     _, zcomp = cs.write_zstd_entry(corpus, dev, extract)
     with cs.recording_kernels(modules) as calls:
-        if extract.decompress_zstd_device(zcomp, len(corpus), device=dev) != corpus:
+        if cs.zstd_python_route(extract, zcomp, len(corpus), dev) != corpus:
             raise AssertionError("the zstd entry does not decode to the corpus")
     zargs, zkw = calls["lz4_replay"][0]
     _, comp_blocks, bounds, _ = extract.walk_lz4f(DeviceCompressor(dev).compress(corpus))

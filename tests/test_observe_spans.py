@@ -405,10 +405,20 @@ def _launch_sites(tree) -> tuple[list, list]:
     return sites, beside
 
 
+def _module_tuples(tree) -> dict:
+    """Each module-level tuple of string constants, by its name."""
+    return {t.id: {e.value for e in node.value.elts} for node in tree.body
+            if isinstance(node, ast.Assign) and isinstance(node.value, ast.Tuple)
+            and all(isinstance(e, ast.Constant) and isinstance(e.value, str)
+                    for e in node.value.elts)
+            for t in node.targets if isinstance(t, ast.Name)}
+
+
 def _launch_keys(tree, sites) -> set:
     """The kernel names the sites record: a constant key itself, a
-    parameter every constant its function's callers pass first, and
-    ``launch_key(mode)`` every tokenizer mode's name."""
+    parameter every constant its function's callers pass first,
+    ``launch_key(mode)`` every tokenizer mode's name, and an item of a
+    module-level tuple of names (``KERNELS[k]``) every name of the tuple."""
     passed: dict = {}
     for node in ast.walk(tree):
         if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.args
@@ -416,10 +426,13 @@ def _launch_keys(tree, sites) -> set:
             passed.setdefault(node.func.id, set()).add(node.args[0].value)
     keys = set()
     for fn, key in sites:
+        expr = ast.parse(key, mode="eval").body
         if key == "launch_key(mode)":
             keys |= {lz4_torch.launch_key(m) for m in lz4_torch.MODES}
-        elif isinstance(ast.parse(key, mode="eval").body, ast.Constant):
+        elif isinstance(expr, ast.Constant):
             keys.add(ast.literal_eval(key))
+        elif isinstance(expr, ast.Subscript) and isinstance(expr.value, ast.Name):
+            keys |= _module_tuples(tree).get(expr.value.id, set())
         else:
             keys |= passed.get(fn, set())
     return keys
@@ -456,6 +469,11 @@ KERNEL_MODULES = {
         {"xxh3_batch", "xxh3_stream"}),
     "kernels/assemble_torch.py": (
         [("_launch", "name")], {"zstd_stitch", "zstd_layout", "zstd_trim"}),
+    # the zstd read's native chain: each launch it reports, by its code
+    "kernels/zstd_chain.py": (
+        [("enqueue", "KERNELS[k]")],
+        {"huffman_decode", "fse_decode", "rep_totals", "zstd_stitch", "rep_apply", "zstd_layout",
+         "lz4_replay", "zstd_trim"}),
 }
 
 
@@ -480,3 +498,8 @@ def test_launch_check_sees_a_missing_count():
     # a site with no count at all
     got = _launch_problems(ast.parse(good.replace("    launched('c')\n", "")), *want)
     assert len(got) == 2 and got[0].startswith("launch sites")
+    # a key from a tuple of names: each name, and a tuple short of one is seen
+    table = "NAMES = ('a', 'b')\n\ndef f(codes):\n    for k in codes:\n        launched(NAMES[k])\n"
+    assert _launch_problems(ast.parse(table), [("f", "NAMES[k]")], {"a", "b"}) == []
+    got = _launch_problems(ast.parse(table.replace(", 'b'", "")), [("f", "NAMES[k]")], {"a", "b"})
+    assert len(got) == 1 and got[0].startswith("kernels")

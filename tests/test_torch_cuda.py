@@ -26,7 +26,7 @@ from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import (assemble_cases, assemble_torch, fse_cases, fse_encode_cases,
                                      fse_torch, huffman_cases, huffman_encode_cases, huffman_torch,
                                      lz4_parse_cases, lz4_torch, replay_cases, tokenize_cases,
-                                     xxh3_cases, xxh3_torch)
+                                     xxh3_cases, xxh3_torch, zstd_chain)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 from zpack_tpu_torch.utils.observe import launches, metrics
@@ -931,6 +931,131 @@ def test_zstd_read_on_cuda_launches_the_assembly_and_copies_nothing_pageable(cud
     assert _waits() == (1, 0)
     names = [e.name for e in prof.events()]
     assert not [n for n in names if "Pageable" in n], sorted(set(names))
+
+
+# ---------------------------------------------------------------------------
+# The zstd read's native enqueue (kernels/zstd_chain.py, csrc/zstd_chain.cu)
+# ---------------------------------------------------------------------------
+
+#: PERF.md section 5's sizes and the desktop tree's kinds
+_TREE_SIZES = (4 << 10, 16 << 10, 64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+_TREE_KINDS = ("text", "markup", "records", "binary", "media")
+
+
+def _tree_entry(kind: str, size: int) -> tuple:
+    from zbench.gen import desktop
+
+    data = desktop.generate(np.random.default_rng([_TREE_KINDS.index(kind), size]), size,
+                            {"content": kind}, None).tobytes()
+    return port_zstd.ZstdCodec().compress(data, 3), data
+
+
+def _native_read(comp: bytes, n: int, cuda) -> bytes:
+    """A read through ``decompress_zstd_device`` that must take the native
+    enqueue: one ``torch.zstd_enqueue``, none of the Python route's phases."""
+    metrics.reset()
+    out = extract.decompress_zstd_device(comp, n, device=cuda)
+    snap = metrics.snapshot()
+    assert snap["torch.zstd_enqueue"]["calls"] == 1
+    assert not {"torch.zstd_stage", "torch.huffman_decode", "torch.fse_decode",
+                "torch.rep_resolve", "torch.replay"} & set(snap)
+    return out
+
+
+@pytest.mark.parametrize("kind", _TREE_KINDS)
+def test_native_enqueue_returns_the_native_decoders_bytes_at_every_size(cuda, kind):
+    for size in _TREE_SIZES:
+        comp, data = _tree_entry(kind, size)
+        assert _native_read(comp, size, cuda) == native.zstd_decompress(comp, size) == data, \
+            size
+
+
+def test_native_enqueue_launches_and_waits_as_the_python_route(cuda):
+    """On every kind at 4 KiB and 1 MiB, an empty and a multi-frame entry:
+    the same bytes, one wait, and the same ``launch.*`` keys and counts
+    under the read as the Python route's wrappers record."""
+    entries = [_tree_entry(kind, size) for kind in _TREE_KINDS for size in (4 << 10, 1 << 20)]
+    text = _text(100_000, 71)
+    entries += [(native.zstd_compress(b"", 3), b""),
+                (b"".join(native.zstd_compress(text[i:i + 30_000], 3)
+                          for i in range(0, 100_000, 30_000)), text)]
+    for comp, data in entries:
+        assert _native_read(comp, len(data), cuda) == data  # the registry reset first
+        assert _waits() == (1, 0)
+        got = launches()
+        metrics.reset()
+        assert extract._decode_python(extract.zstd_plan(comp), len(data), cuda) == data
+        assert got == launches(), len(data)
+
+
+def test_native_enqueue_gives_the_exact_and_resize_paths_bytes(cuda):
+    """A frame without its size (the record read back after part A, then
+    part B) and one whose size is wrong (the stitch again, then part B):
+    the bytes of the declared frame, the CPU route's waits and resizes,
+    and, on a corrupted frame without a size, the CPU route's error."""
+    data = _text(300_000, 72)
+    frame = native.zstd_compress(data, 3)
+    wrong = frame[:6] + (len(data) + 9).to_bytes(4, "little") + frame[10:]
+    for comp, want, counts in ((frame, data, (1, 0)), (_strip_size(frame), data, (2, 1)),
+                               (wrong, data, (2, 1)),
+                               (_strip_size(frame) + frame, data * 2, (2, 1))):
+        assert _native_read(comp, None, cuda) == want
+        assert _waits() == counts
+    for p in np.linspace(20, len(frame) - 5, 3).astype(int).tolist():
+        bad = bytearray(_strip_size(frame))
+        bad[p] ^= 0x5A
+        assert _route_outcome(bytes(bad), len(data), cuda) == \
+            _route_outcome(bytes(bad), len(data), "cpu"), p
+
+
+def test_native_reads_back_to_back_keep_their_buffers(cuda):
+    """Reads back to back behind a long kernel, and four threads reading at
+    once, each on a stream of its own: every read returns its own entry,
+    so no read's pinned upload, arena or read-back is another's."""
+    import threading
+
+    entries = [_tree_entry(kind, size) for kind in _TREE_KINDS for size in (16 << 10, 256 << 10)]
+    torch.cuda._sleep(200_000_000)  # holds the stream some 100 ms
+    for comp, data in entries * 2:
+        assert extract.decompress_zstd_device(comp, len(data), device=cuda) == data
+    bad = []
+
+    def reader(k):
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for i in range(12):
+                comp, data = entries[(k + i) % len(entries)]
+                if extract.decompress_zstd_device(comp, len(data), device=cuda) != data:
+                    bad.append((k, i))
+
+    threads = [threading.Thread(target=reader, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+
+
+def test_native_enqueue_spans_sit_under_the_read(cuda):
+    """``torch.zstd_enqueue`` under ``zstd.decompress``, its wait under it,
+    and every kernel it records under the enqueue, through Reader.read_file."""
+    data = _text(300_000, 73)
+    engine.install(cuda)
+    try:
+        w = Writer.to_heap()
+        w.write_archive([("z", data, CompressOptions(CompressionMethod.ZSTD, 3))])
+        r = Reader.from_memory(w.buffer)
+        metrics.reset()
+        assert r.read_file("z") == data
+    finally:
+        engine.uninstall()
+    snap = metrics.snapshot()
+    assert snap["torch.zstd_enqueue"]["parents"] == {"zstd.decompress": 1}
+    assert snap["torch.zstd_enqueue.wait"]["parents"] == {"torch.zstd_enqueue": 1}
+    assert snap["torch.zstd_enqueue"]["bytes"] >= r.get_file_entry("z").comp_size
+    kernels = {k: v for k, v in snap.items() if k.startswith("launch.")}
+    assert set(kernels) == {f"launch.{k}" for k in zstd_chain.KERNELS}
+    assert all(v["parents"] == {"torch.zstd_enqueue": 1} for v in kernels.values())
 
 
 # ---------------------------------------------------------------------------

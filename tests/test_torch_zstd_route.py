@@ -18,6 +18,7 @@ from zpack_tpu.errors import DecompressError as JaxDecompressError
 from zpack_tpu.parallel import extract as jax_extract
 from zpack_tpu_torch import CompressionMethod, CompressOptions, Reader, Writer, codecs, engine
 from zpack_tpu_torch.codecs import zstd as port_zstd
+from zpack_tpu_torch.codecs.zstd import frame as zframe
 from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import assemble_torch, lz4_torch
 from zpack_tpu_torch.parallel import extract
@@ -109,6 +110,30 @@ def test_flip_sweeps_raise_what_jax_raises(group):
     blob, flips = _corrupted()
     for bad in flips[group::FLIP_GROUPS]:
         assert _outcome(_port, bad, len(blob)) == _outcome(_jax, bad, len(blob))
+
+
+def _sentinel_zeroed(frame: bytes) -> bytes:
+    """``frame`` (one frame) with the last byte of its first block with
+    sequences zeroed: that block's sequence bitstream loses its sentinel,
+    so the native walk refuses the entry and the Python walk's plan carries
+    the FSE batch's error."""
+    pos = 4 + zframe.parse_frame_header(frame, 4).header_size
+    for b in extract.walk_zstd(frame).frames[0][1]:
+        bsize = (frame[pos] | frame[pos + 1] << 8 | frame[pos + 2] << 16) >> 3
+        pos += 3 + (1 if b.btype == zframe.BLOCK_RLE else bsize)
+        if b.slot is not None:
+            break
+    bad = bytearray(frame)
+    bad[pos - 1] = 0
+    return bytes(bad)
+
+
+def test_a_plan_with_a_pending_error_raises_it_after_the_huffman_check():
+    data, want = INPUTS["text"]
+    bad = _sentinel_zeroed(data)
+    assert extract.zstd_plan(bad).error is not None
+    assert _outcome(_port, bad, len(want)) == _outcome(_jax, bad, len(want)) == \
+        "DecompressError: corrupt backward bitstream (no sentinel)"
 
 
 def test_replay_error_comes_after_every_decompress_error(monkeypatch):

@@ -163,6 +163,8 @@ def lib() -> ctypes.CDLL:
                                             p, p, p]
             cdll.zp_zstd_trim.restype = i
             cdll.zp_zstd_trim.argtypes = [p, i64, p, i, i64, p, p, i, p, p]
+            cdll.zp_zstd_chain.restype = i
+            cdll.zp_zstd_chain.argtypes = [p, i, p, p, p, p, p, p, p, p]
             cdll.zp_error_string.restype = ctypes.c_char_p
             cdll.zp_error_string.argtypes = [i]
             _LIB = cdll

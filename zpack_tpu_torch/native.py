@@ -1,8 +1,9 @@
 """ctypes loader for the native host backend (native/zpack_native.cpp).
 
 The port's library also holds ``native/zstd_walk.cpp``, the walk of a zstd
-entry into the device decoders' batches (:class:`ZstdWalk`), which the JAX
-package's library does not.
+entry into the device decoders' batches (:class:`ZstdWalk`), and
+``native/zstd_read.cpp``, the host layout of a zstd read on the card
+(``kernels/zstd_chain.py``), which the JAX package's library does not.
 
 Builds the shared library on first use with g++, from the repository's
 ``native/`` sources into ``zpack_tpu_torch/_build/`` (which git ignores), so
@@ -34,7 +35,10 @@ _SRCS = [
     _ROOT / "native" / "zstd_decode.cpp",
     _ROOT / "native" / "zstd_encode.cpp",
     _ROOT / "native" / "zstd_walk.cpp",
+    _ROOT / "native" / "zstd_read.cpp",
 ]
+#: headers the sources include: an edited one rebuilds the library too
+_HEADERS = [_ROOT / "zpack_tpu_torch" / "csrc" / "zstd_chain.cuh"]
 _SO = pathlib.Path(__file__).resolve().parent / "_build" / "_zpack_native.so"
 # Prebuilt .so override (e.g. a sanitizer build from scripts/sanitize_native.py)
 _SO_OVERRIDE = os.environ.get("ZPACK_TPU_NATIVE_SO")
@@ -50,7 +54,8 @@ def _build() -> bool:
         return False
 
     def fresh() -> bool:
-        return _SO.exists() and all(_SO.stat().st_mtime >= s.stat().st_mtime for s in srcs)
+        return _SO.exists() and all(_SO.stat().st_mtime >= s.stat().st_mtime
+                                    for s in srcs + [h for h in _HEADERS if h.exists()])
 
     if fresh():
         return True
@@ -191,6 +196,14 @@ def get_lib() -> ctypes.CDLL | None:
             lib.zw_sequences.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             lib.zw_free.restype = None
             lib.zw_free.argtypes = [ctypes.c_void_p]
+        if hasattr(lib, "zr_layout"):
+            p = ctypes.c_void_p
+            lib.zr_layout.restype = ctypes.c_int
+            lib.zr_layout.argtypes = [p, ctypes.c_int64, p]
+            lib.zr_replay_layout.restype = ctypes.c_int
+            lib.zr_replay_layout.argtypes = [p, p]
+            lib.zr_pack.restype = None
+            lib.zr_pack.argtypes = [p, p, p]
         _LIB = lib
         return _LIB
 
@@ -631,6 +644,12 @@ def zstd_walk_lib() -> ctypes.CDLL | None:
     """The library when it holds the zstd walk, else None."""
     lib = get_lib()
     return lib if lib is not None and hasattr(lib, "zw_literals") else None
+
+
+def zstd_read_lib() -> ctypes.CDLL | None:
+    """The library when it holds the zstd read's host layout, else None."""
+    lib = get_lib()
+    return lib if lib is not None and hasattr(lib, "zr_layout") else None
 
 
 class ZstdWalk:

@@ -39,7 +39,7 @@ from ..codecs.zstd import frame as zframe, seq as zseq
 from ..errors import DecompressError
 from ..utils.observe import metrics
 
-from ..kernels import assemble_torch, fse_torch, huffman_torch, lz4_torch
+from ..kernels import assemble_torch, fse_torch, huffman_torch, lz4_torch, zstd_chain
 from ..kernels.huffman_torch import TorchHuffmanDecoder
 from ..kernels.lz4_torch import DeviceLZ4Replayer
 
@@ -412,10 +412,7 @@ def stage(arrays: dict, device) -> dict:
     if device.type == "cpu":
         return {k: torch.from_numpy(a if a.flags.writeable else a.copy())
                 for k, a in arrays.items()}
-    places, pos = {}, 0
-    for k, a in arrays.items():
-        places[k] = pos
-        pos += -(-a.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+    places, pos = stage_places(arrays)
     host = torch.empty(max(pos, 1), dtype=torch.uint8, pin_memory=True)
     view = host.numpy()
     for k, a in arrays.items():
@@ -423,6 +420,16 @@ def stage(arrays: dict, device) -> dict:
     dev = host.to(device, non_blocking=True)
     return {k: dev[places[k]:places[k] + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
             for k, a in arrays.items()}
+
+
+def stage_places(arrays: dict) -> tuple[dict, int]:
+    """Where :func:`stage` packs each of ``arrays`` (name: numpy array),
+    in bytes from the upload's start, and the upload's bytes."""
+    places, pos = {}, 0
+    for k, a in arrays.items():
+        places[k] = pos
+        pos += -(-a.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+    return places, pos
 
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
@@ -470,16 +477,15 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
        sequence item, the segment table's width, each frame's declared
        size (:func:`predicted_sizes`);
     2. all of it, with the plan's ``source`` (on the native walk the entry
-       itself), up in one pinned copy (:func:`stage`, the phase
-       ``torch.zstd_stage``);
+       itself), up in one pinned copy;
     3. every Huffman literal stream in one launch, each written straight to
        its place in its frame's literal row;
     4. every FSE sequence section in one launch;
-    5. repeat offsets: per-block totals (``torch.rep_resolve``), the entry
-       states stitched frame by frame on the device
+    5. repeat offsets: per-block totals (``fse_torch.rep_totals``), the
+       entry states stitched frame by frame on the device
        (``assemble_torch.stitch``, which also places every block and makes
-       every layout check; ``torch.zstd_assemble``), then the offsets
-       resolved (``torch.rep_resolve``);
+       every layout check), then the offsets resolved
+       (``fse_torch.rep_apply``);
     6. the layout (``assemble_torch.layout``): each frame's segments in one
        (F, SB) table, the "beyond decoded history" check, the raw literal
        runs copied in;
@@ -495,9 +501,18 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
     again at the computed sizes.  Both count ``torch.zstd_resize`` and give
     the same bytes and errors.
 
-    With ``mesh`` (a ``DeviceMesh``) the Huffman and FSE decode batches of
-    steps 3 and 4 shard over its devices, as the JAX function's do over its
-    mesh, each checked where it runs; the rest runs on ``device``.
+    Three routes run steps 2 to 7, chosen by the device and the mesh alone:
+
+    * on a GPU (``mesh`` None), :func:`_decode_native`: sizes, upload and
+      launch chain from native code (``kernels/zstd_chain.py``), one phase
+      ``torch.zstd_enqueue``;
+    * on the CPU, :func:`_decode_python`: the same steps through the
+      wrappers' plain versions (and on a GPU where the native library is
+      missing, through the wrappers' kernels);
+    * with ``mesh`` (a ``DeviceMesh``), :func:`_decode_mesh`: the Huffman
+      and FSE decode batches of steps 3 and 4 shard over its devices, as
+      the JAX function's do over its mesh, each checked where it runs; the
+      rest runs on ``device`` as on the Python route.
 
     Raises DecompressError, with the messages of the JAX function and in
     its order, on malformed input and on what the device does not decode
@@ -506,82 +521,148 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None, *, device,
     dev = torch.device(device)
     with metrics.phase("torch.zstd_walk", len(data)):
         plan = zstd_plan(data)
-    F = len(plan.frame_chk)
     result = b""
-    if F:
-        result = _decode_planned(plan, max_out, dev, mesh)
+    if plan.frame_chk:
+        if mesh is not None:
+            result = _decode_mesh(plan, max_out, dev, mesh)
+        elif dev.type == "cuda" and plan.error is None and native.zstd_read_lib() is not None:
+            result = _decode_native(plan, max_out, dev)
+        else:  # a plan with an error raises it there, after the Huffman check
+            result = _decode_python(plan, max_out, dev)
     if max_out is not None and len(result) > max_out:
         raise DecompressError("zstd output exceeds expected size")
     return result
 
 
-def _decode_planned(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
-    """Steps 2 to 7 of :func:`decompress_zstd_device` for an entry of at
-    least one frame."""
-    F, LB, huf, fse = len(plan.frame_chk), plan.lit_row, plan.huffman, plan.sequences
-    blk = plan.blocks
-    slot = blk[:, 2]
-    B = 0 if fse is None else len(fse["rows"])
-    seq_off = fse["seq_off"] if fse is not None else np.zeros(1, np.int64)
-    n_syms, n_seqs = 0 if huf is None else int(huf["rows"][:, 3].sum()), int(seq_off[-1])
+class ReadShape(NamedTuple):
+    """What the host computes of a read before its upload (step 1)."""
+    frame_first: np.ndarray  # (F + 1,) int64: each frame's first block, NB last
+    sizes: np.ndarray | None  # the declared sizes, or None: the exact path
+    cap: int                 # the longest frame the replay may take
+
+
+def read_shape(plan: ZstdPlan, max_out: int | None) -> ReadShape:
+    """The read's :class:`ReadShape` in numpy."""
+    F, blk = len(plan.frame_chk), plan.blocks
     sizes = predicted_sizes(plan, max_out)
-    up = {"blk": blk, "frame_first": np.searchsorted(blk[:, 0], np.arange(F + 1)),
-          "seq_off": seq_off, "runs": plan.runs,
-          "declared": sizes if sizes is not None else np.full(F, -1, np.int64)}
-    if sizes is not None:
-        up["offsets"] = _frame_offsets(sizes)
+    return ReadShape(np.searchsorted(blk[:, 0], np.arange(F + 1)), sizes,
+                     int(sizes.max()) if sizes is not None else assemble_torch.NONE)
+
+
+def segment_width(plan: ZstdPlan) -> int:
+    """The segment table's width: a frame's sequences plus a segment a
+    block, for its literal tail or its literals alone (a plan whose FSE
+    batch failed has raised before this is asked)."""
+    F, blk = len(plan.frame_chk), plan.blocks
+    slot = blk[:, 2]
+    per_block = np.ones(len(blk), np.int64)
+    per_block[slot >= 0] += np.diff(_seq_off(plan))[slot[slot >= 0]]
+    return max(int(np.bincount(blk[:, 0], per_block, minlength=F).max()), 1)
+
+
+def _seq_off(plan: ZstdPlan) -> np.ndarray:
+    return plan.sequences["seq_off"] if plan.sequences is not None else np.zeros(1, np.int64)
+
+
+def uploads(plan: ZstdPlan, shape: ReadShape, entropy: bool = True) -> dict:
+    """The host arrays of the read's one upload, in order; the decoders'
+    rows and tables only with ``entropy`` (the mesh's shards upload their
+    own)."""
+    F, huf, fse = len(plan.frame_chk), plan.huffman, plan.sequences
+    up = {"blk": plan.blocks, "frame_first": shape.frame_first, "seq_off": _seq_off(plan),
+          "runs": plan.runs,
+          "declared": shape.sizes if shape.sizes is not None else np.full(F, -1, np.int64)}
+    if shape.sizes is not None:
+        up["offsets"] = _frame_offsets(shape.sizes)
     up["source"] = plan.source
-    if mesh is None:
+    if entropy:
         if huf is not None:
             up.update({f"huf_{k}": huf[k] for k in ("rows", "tables")})
         if fse is not None:
             up.update({f"fse_{k}": fse[k] for k in ("rows", "al", "tables")})
+    return up
+
+
+def _no_sequences(dev) -> tuple:
+    """The FSE decode's outputs for a read with no sequence section."""
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    return empty, empty, empty, empty, torch.zeros(0, dtype=torch.bool, device=dev)
+
+
+def _decode_python(plan: ZstdPlan, max_out, dev) -> bytes:
+    """Steps 2 to 7 through the wrappers on ``dev``: the CPU route, with
+    their plain versions; on a GPU, with their kernels, a plan whose FSE
+    batch failed (it raises after the Huffman check) and a host without the
+    native library."""
+    F, huf, fse = len(plan.frame_chk), plan.huffman, plan.sequences
+    shape = read_shape(plan, max_out)
+    up = uploads(plan, shape)
     with metrics.phase("torch.zstd_stage", sum(v.nbytes for v in up.values())):
         d = stage(up, dev)
-    source = d["source"]
-    shards = dev if mesh is None else mesh
-    i32 = torch.int32
-
-    with metrics.phase("torch.huffman_decode", n_syms):
-        final = torch.zeros(0, dtype=i32, device=dev)
+    with metrics.phase("torch.huffman_decode",
+                       0 if huf is None else int(huf["rows"][:, 3].sum())):
         if huf is None:
-            lit_flat = torch.zeros(F * LB, dtype=torch.uint8, device=dev)
-        elif mesh is None:
+            lit_flat = torch.zeros(F * plan.lit_row, dtype=torch.uint8, device=dev)
+            final = torch.zeros(0, dtype=torch.int32, device=dev)
+        else:
             lit_flat, final = huffman_torch.decode_streams(
-                source, d["huf_rows"], d["huf_tables"], n_out=F * LB, widest=huf["widest"])
-        else:  # the shards' own uploads and read-back, so checked here
-            lit_flat, fin = TorchHuffmanDecoder(shards).decode_built(
-                {**huf, "payload": source}, F * LB)
-            if (fin != 0).any():
-                raise DecompressError("huffman stream not fully consumed")
-            lit_flat = lit_flat.to(dev)
+                d["source"], d["huf_rows"], d["huf_tables"], n_out=F * plan.lit_row,
+                widest=huf["widest"])
         if plan.error is not None:  # no FSE batch: the Huffman check, then its error
             with metrics.phase("torch.huffman_decode.wait", final.nbytes):
                 if bool((final != 0).any()):
                     raise DecompressError("huffman stream not fully consumed")
             raise plan.error
+    seqs = _no_sequences(dev)
+    if fse is not None:
+        with metrics.phase("torch.fse_decode", int(fse["seq_off"][-1])):
+            seqs = fse_torch.decode_seq_streams(
+                d["source"], d["fse_rows"], d["seq_off"], d["fse_al"], d["fse_tables"],
+                shape=fse_torch.decode_shape(fse["rows"], fse["seq_off"]))
+    return _assemble(plan, max_out, dev, shape, d, lit_flat, final, seqs)
 
-    # the segment table's width: a frame's sequences, and a segment a block
-    # for its literal tail or its literals alone
-    per_block = np.ones(len(blk), np.int64)
-    per_block[slot >= 0] += np.diff(seq_off)[slot[slot >= 0]]
-    SB = max(int(np.bincount(blk[:, 0], per_block, minlength=F).max()), 1)
-    seq_d = d["seq_off"]
-    if B:
-        with metrics.phase("torch.fse_decode", n_seqs):
-            if mesh is None:
-                lls, mls, ovs, pos_f, ferr = fse_torch.decode_seq_streams(
-                    source, d["fse_rows"], seq_d, d["fse_al"], d["fse_tables"],
-                    shape=fse_torch.decode_shape(fse["rows"], seq_off))
-            else:  # the shards raise their own errors, in item order
-                flat, _ = fse_torch.TorchSequenceDecoder(shards).decode_built(
-                    {**fse, "payload": source})
-                lls, mls, ovs = (t.to(dev) for t in flat)
-                pos_f, ferr = torch.zeros(B, dtype=i32, device=dev), \
-                    torch.zeros(B, dtype=torch.bool, device=dev)
-    else:
-        lls = mls = ovs = pos_f = torch.zeros(0, dtype=i32, device=dev)
-        ferr = torch.zeros(0, dtype=torch.bool, device=dev)
+
+def _decode_mesh(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
+    """Steps 2 to 7 with the Huffman and FSE batches sharded over ``mesh``:
+    each shard has its own uploads and read-back, so its checks run where
+    it runs, and its errors come in item order."""
+    F, huf, fse = len(plan.frame_chk), plan.huffman, plan.sequences
+    shape = read_shape(plan, max_out)
+    up = uploads(plan, shape, entropy=False)
+    with metrics.phase("torch.zstd_stage", sum(v.nbytes for v in up.values())):
+        d = stage(up, dev)
+    final = torch.zeros(0, dtype=torch.int32, device=dev)
+    with metrics.phase("torch.huffman_decode",
+                       0 if huf is None else int(huf["rows"][:, 3].sum())):
+        if huf is None:
+            lit_flat = torch.zeros(F * plan.lit_row, dtype=torch.uint8, device=dev)
+        else:
+            lit_flat, fin = TorchHuffmanDecoder(mesh).decode_built(
+                {**huf, "payload": d["source"]}, F * plan.lit_row)
+            if (fin != 0).any():
+                raise DecompressError("huffman stream not fully consumed")
+            lit_flat = lit_flat.to(dev)
+        if plan.error is not None:
+            raise plan.error
+    seqs = _no_sequences(dev)
+    if fse is not None:
+        B = len(fse["rows"])
+        with metrics.phase("torch.fse_decode", int(fse["seq_off"][-1])):
+            flat, _ = fse_torch.TorchSequenceDecoder(mesh).decode_built(
+                {**fse, "payload": d["source"]})
+            seqs = (*(t.to(dev) for t in flat), torch.zeros(B, dtype=torch.int32, device=dev),
+                    torch.zeros(B, dtype=torch.bool, device=dev))
+    return _assemble(plan, max_out, dev, shape, d, lit_flat, final, seqs)
+
+
+def _assemble(plan: ZstdPlan, max_out, dev, shape: ReadShape, d: dict, lit_flat, final,
+              seqs: tuple) -> bytes:
+    """Steps 5 to 7 through the wrappers, from the decoders' outputs
+    ``lit_flat``, ``final`` and ``seqs`` (``lls, mls, ovs, pos_f, ferr``)."""
+    F, LB, SB = len(plan.frame_chk), plan.lit_row, segment_width(plan)
+    lls, mls, ovs, pos_f, ferr = seqs
+    B, n_seqs, i32 = len(d["seq_off"]) - 1, lls.numel(), torch.int32
+    sizes, seq_d = shape.sizes, d["seq_off"]
     rec = assemble_torch.new_record(F, dev)
     max_o = -1 if max_out is None else max_out
 
@@ -589,7 +670,6 @@ def _decode_planned(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
         return assemble_torch.stitch(d["blk"], d["frame_first"], seq_d, sel, val, sums, final,
                                      pos_f, ferr, declared, rec, max_out=max_o, cap=cap)
 
-    cap = int(sizes.max()) if sizes is not None else assemble_torch.NONE
     if B:
         with metrics.phase("torch.rep_resolve", n_seqs):
             sel, val, sums = fse_torch.rep_totals(ovs, lls, mls, seq_d)
@@ -597,7 +677,7 @@ def _decode_planned(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
         sel = val = torch.zeros((0, 3), dtype=i32, device=dev)
         sums = torch.zeros((0, 2), dtype=torch.int64, device=dev)
     with metrics.phase("torch.zstd_assemble", F):
-        entry_rep, bases, frame_out = stitch(d["declared"], cap)
+        entry_rep, bases, frame_out = stitch(d["declared"], shape.cap)
     if B:  # the offsets from the entry states the stitch composed
         with metrics.phase("torch.rep_resolve", 0):
             offs, rep_err = fse_torch.rep_apply(ovs, lls, seq_d, entry_rep)
@@ -607,7 +687,7 @@ def _decode_planned(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
     with metrics.phase("torch.zstd_assemble", 0):
         seg = assemble_torch.layout(
             d["blk"], d["frame_first"], bases, seq_d, lls, mls, offs, sums, rep_err, rec, SB=SB,
-            runs=d["runs"], run_src=source, lits=lit_flat)
+            runs=d["runs"], run_src=d["source"], lits=lit_flat)
         if sizes is None:  # the exact path: the sizes first
             metrics.count("torch.zstd_resize")
             with metrics.phase("torch.zstd_assemble.wait", rec.nbytes):
@@ -641,9 +721,89 @@ def _decode_planned(plan: ZstdPlan, max_out, dev, mesh) -> bytes:
                                      assemble_torch.NONE)
             offsets = stage({"offsets": _frame_offsets(sizes)}, dev)["offsets"]
         head, flat = replay_and_read(frame_out, offsets, sizes)
+    return _finish(plan, sizes, head, flat)
+
+
+def _decode_native(plan: ZstdPlan, max_out, dev) -> bytes:
+    """Steps 2 to 7 on a GPU from native code (``kernels/zstd_chain.py``):
+    the layout in one host call, then in the phase ``torch.zstd_enqueue``
+    one pinned buffer, the upload packed into it in one call, one arena
+    from the caching allocator, and the whole chain, read-back included, in
+    one call; then the one wait.  The exact path reads the record back
+    after part A, then runs part B on a buffer sized for the computed
+    sizes; a wrong declared size runs the stitch again and part B.  Every
+    buffer lives until the stream has passed its last use."""
+    F = len(plan.frame_chk)
+    lay = zstd_chain.Layout(plan, max_out)
+    exact, rec_words = lay["EXACT"], lay["REC_WORDS"]
+    stream = torch.cuda.current_stream(dev)
+    arenas = []  # part B's device buffers
+
+    def part_b(parts, sizes):
+        """Part B (after ``parts``) at the computed ``sizes``: its buffers,
+        the frames' offsets up, the read-back into a pinned buffer, which it
+        returns."""
+        lay.replay(sizes)
+        pinned_b = torch.empty(lay["PIN_BYTES"], dtype=torch.uint8, pin_memory=True)
+        pinned_b.numpy()[:8 * (F + 1)].view(np.int64)[:] = _frame_offsets(sizes)
+        arena_b = torch.empty(lay["B_BYTES"], dtype=torch.uint8, device=dev)
+        zstd_chain.enqueue(lay, parts | zstd_chain.PART_B, pinned, arena,
+                           part_b=arena_b.data_ptr(), offsets=pinned_b,
+                           back=pinned_b.data_ptr() + lay["PIN_BACK"])
+        arenas.append(arena_b)
+        return pinned_b
+
+    def read(buf):
+        view = buf.numpy()[lay["PIN_BACK"]:lay["PIN_BACK"] + lay["BACK_BYTES"]]
+        return view[:4 * rec_words].view(np.int32), view[4 * rec_words:]
+
+    try:
+        with metrics.phase("torch.zstd_enqueue", lay["UP_BYTES"]):
+            pinned = torch.empty(lay["PIN_BYTES"], dtype=torch.uint8, pin_memory=True)
+            lay.pack(pinned)
+            arena = torch.empty(lay["A_BYTES"] + (0 if exact else lay["B_BYTES"]),
+                                dtype=torch.uint8, device=dev)
+            zstd_chain.enqueue(lay, zstd_chain.PART_A | (0 if exact else zstd_chain.PART_B),
+                               pinned, arena, back=pinned.data_ptr() + lay["PIN_BACK"])
+            back = pinned
+            sizes = plan.frame_size
+            if exact:  # the sizes first
+                with metrics.phase("torch.zstd_assemble", F):
+                    metrics.count("torch.zstd_resize")
+                    with metrics.phase("torch.zstd_assemble.wait", 4 * rec_words):
+                        stream.synchronize()
+                    head, _ = read(pinned)
+                    err = assemble_torch.first_error(head)
+                    if err is not None:
+                        raise err
+                    sizes = assemble_torch.record_sizes(head).copy()
+                    back = part_b(0, sizes)
+            with metrics.phase("torch.zstd_enqueue.wait", lay["BACK_BYTES"]):
+                stream.synchronize()
+        head, flat = read(back)
+        err = assemble_torch.first_error(head)
+        if err is not None:
+            raise err
+        if head[assemble_torch.REC_RESIZE]:  # a declared size was wrong: replay at the computed
+            sizes = assemble_torch.record_sizes(head).copy()
+            with metrics.phase("torch.zstd_assemble", F):
+                metrics.count("torch.zstd_resize")
+                back = part_b(zstd_chain.PART_RESTITCH, sizes)
+                with metrics.phase("torch.zstd_assemble.wait", lay["BACK_BYTES"]):
+                    stream.synchronize()
+            head, flat = read(back)
+    except BaseException:
+        stream.synchronize()  # nothing of this read may still use its buffers
+        raise
+    return _finish(plan, sizes, head, flat)
+
+
+def _finish(plan: ZstdPlan, sizes: np.ndarray, head: np.ndarray, flat: np.ndarray) -> bytes:
+    """The replay's own error, the content checksums, and the output's one
+    copy into bytes, from the read-back's record ``head`` and bytes
+    ``flat``."""
     if head[assemble_torch.REC_REPLAY]:
         raise RuntimeError(lz4_torch.REPLAY_UNRESOLVED)
-
     bounds = _frame_offsets(sizes).tolist()
     with metrics.phase("torch.zstd_checksum", len(flat)):
         for chk, a, b in zip(plan.frame_chk, bounds[:-1], bounds[1:]):

@@ -138,7 +138,9 @@ def _entries():
     zstd = zp.CompressOptions(zp.CompressionMethod.ZSTD, 3)
     # over 1 MiB stored, so the Reader scans the entry for frames in place
     big = text[:400_000] + rng.integers(0, 256, 1_100_000, dtype=np.uint8).tobytes()
-    return ([("big.bin", big, lz4), ("small.txt", text[:70_000], lz4)],
+    # under the device route's 64 KiB, so the host encoder and decoder
+    tiny = text[:3_000]
+    return ([("big.bin", big, lz4), ("small.txt", text[:70_000], lz4), ("tiny.txt", tiny, lz4)],
             [("z.txt", text[:300_000], zstd)])
 
 
@@ -208,7 +210,7 @@ def test_popping_the_wrapper_restores_phase(round_trip):
 
 def test_wrapper_on_the_instance_sees_every_span(round_trip):
     seen, snap = round_trip
-    counts = {"torch.zstd_resize"}  # metrics.count, no span
+    counts = {"torch.zstd_resize", *ROUTE_COUNTS}  # metrics.count, no span
     assert seen == {k: v["calls"] for k, v in snap.items() if k not in counts}
 
 
@@ -254,7 +256,13 @@ PARENTS = {
     "torch.replay.wait": {"torch.replay"},
     "torch.zstd_checksum": {"zstd.decompress"},
     "torch.zstd_join": {"zstd.decompress"},
+    # counts: each LZ4 entry's route, under its codec phase
+    "lz4.compress.device": {"lz4.compress"},
+    "lz4.compress.host": {"lz4.compress"},
+    "lz4.decompress.device": {"lz4.decompress"},
+    "lz4.decompress.host": {"lz4.decompress"},
 }
+ROUTE_COUNTS = [n for n in PARENTS if n.startswith(("lz4.compress.", "lz4.decompress."))]
 
 
 @pytest.mark.parametrize("name", sorted(PARENTS))
@@ -503,3 +511,110 @@ def test_launch_check_sees_a_missing_count():
     assert _launch_problems(ast.parse(table), [("f", "NAMES[k]")], {"a", "b"}) == []
     got = _launch_problems(ast.parse(table.replace(", 'b'", "")), [("f", "NAMES[k]")], {"a", "b"})
     assert len(got) == 1 and got[0].startswith("kernels")
+
+
+# -- the LZ4 route counts ---------------------------------------------------------
+
+def test_round_trip_counts_one_route_an_lz4_entry(round_trip):
+    """Two entries over 64 KiB on the device route, one under it on the
+    host's, on create and on read, each with its bytes."""
+    _, snap = round_trip
+    lz4_files, _ = _entries()
+    dev = sum(len(d) for n, d, _ in lz4_files if n != "tiny.txt")
+    tiny = len(lz4_files[2][1])
+    for kind in ("compress", "decompress"):
+        assert (snap[f"lz4.{kind}.device"]["calls"], snap[f"lz4.{kind}.device"]["bytes"]) == (2, dev)
+        assert (snap[f"lz4.{kind}.host"]["calls"], snap[f"lz4.{kind}.host"]["bytes"]) == (1, tiny)
+        assert snap[f"lz4.{kind}"]["calls"] == 3
+
+
+def test_in_place_read_counts_the_host_route():
+    """An entry of many frames over 1 MiB stored (the host's chunked
+    encoder, no engine) read with the engine installed: the Reader decodes
+    it in place on the host, and counts that route once."""
+    rng = np.random.default_rng(11)
+    data = rng.integers(0, 256, (2 << 20) + 4096, dtype=np.uint8).tobytes()
+    before = codecs.device_setting()
+    try:
+        engine.uninstall()
+        w = zp.Writer.to_heap()
+        w.write_archive([("many.bin", data, zp.CompressOptions(zp.CompressionMethod.LZ4, 1))])
+        engine.install("cpu")
+        m = Metrics()
+        r = zp.Reader.from_memory(w.buffer)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr("zpack_tpu_torch.reader.metrics", m)
+            assert r.read_file("many.bin") == data
+    finally:
+        codecs.set_device(before)
+    snap = m.snapshot()
+    assert "reader.lz4_scan" in snap
+    assert snap["lz4.decompress.host"]["calls"] == 1
+    assert snap["lz4.decompress.host"]["bytes"] == len(data)
+    assert snap["lz4.decompress.host"]["parents"] == {"lz4.decompress": 1}
+    assert "lz4.decompress.device" not in snap
+
+
+def _route_sites(tree) -> list:
+    """``(function, name, phase)`` of every ``metrics.count`` of an
+    ``lz4.`` name in source order, with the ``metrics.phase`` name of the
+    innermost ``with`` around it (None outside any)."""
+    sites = []
+
+    def visit(node, fn, phase):
+        for child in ast.iter_child_nodes(node):
+            inner = phase
+            if isinstance(child, ast.With):
+                for item in child.items:
+                    call = item.context_expr
+                    if (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                            and call.func.attr == "phase" and call.args
+                            and isinstance(call.args[0], ast.Constant)):
+                        inner = call.args[0].value
+            if (isinstance(child, ast.Call) and isinstance(child.func, ast.Attribute)
+                    and child.func.attr == "count" and isinstance(child.func.value, ast.Name)
+                    and child.func.value.id == "metrics" and child.args
+                    and isinstance(child.args[0], ast.Constant)
+                    and str(child.args[0].value).startswith("lz4.")):
+                sites.append((fn, child.args[0].value, phase))
+            visit(child, child.name if isinstance(child, ast.FunctionDef) else fn, inner)
+
+    visit(tree, None, None)
+    return sites
+
+
+#: each module's LZ4 route counts (function, name, codec phase open) in
+#: source order: one count an entry, whichever branch it takes
+ROUTE_MODULES = {
+    "codecs/lz4/__init__.py": [
+        ("compress", "lz4.compress.device", "lz4.compress"),
+        ("compress", "lz4.compress.host", "lz4.compress"),
+        ("decompress", "lz4.decompress.device", "lz4.decompress"),
+        ("decompress", "lz4.decompress.host", "lz4.decompress")],
+    "reader.py": [("_read_lz4_inplace", "lz4.decompress.host", "lz4.decompress")],
+}
+
+
+def test_every_route_count_is_at_its_site():
+    """The LZ4 routes are counted at their known sites only, each inside
+    its codec phase, and nowhere else in the package."""
+    found = {}
+    for path in sorted(PKG.rglob("*.py")):
+        sites = _route_sites(ast.parse(path.read_text()))
+        if sites:
+            found[path.relative_to(PKG).as_posix()] = sites
+    assert found == ROUTE_MODULES
+
+
+def test_route_check_sees_a_count_out_of_place():
+    good = ("def compress(d):\n    with metrics.phase('lz4.compress', len(d)):\n"
+            "        if d:\n            metrics.count('lz4.compress.device', nbytes=len(d))\n"
+            "            return d\n        metrics.count('lz4.compress.host', nbytes=len(d))\n")
+    want = [("compress", "lz4.compress.device", "lz4.compress"),
+            ("compress", "lz4.compress.host", "lz4.compress")]
+    assert _route_sites(ast.parse(good)) == want
+    # a count moved out of the codec phase, and one left out
+    outside = good.replace("    with metrics.phase('lz4.compress', len(d)):\n", "    if True:\n")
+    assert [p for _, _, p in _route_sites(ast.parse(outside))] == [None, None]
+    missing = good.replace("        metrics.count('lz4.compress.host', nbytes=len(d))\n", "")
+    assert _route_sites(ast.parse(missing)) == want[:1]

@@ -795,6 +795,61 @@ def test_lz4_replayer_errors_on_cuda_match_the_cpu_route(cuda):
         assert launches(mark)["lz4_replay"] == 0
 
 
+#: the LZ4 routes' edges, as the desktop tree's test holds them on the CPU:
+#: under ``DEVICE_MIN`` the host route, from it up the card's (a last block
+#: of one byte at 64 KiB + 1 and 128 KiB + 1), and three random blocks
+#: stored raw
+LZ4_EDGE_SIZES = {"one": 1, "under": 65535, "at": 65536, "over": 65537, "two": 131073,
+                  "media": 196608}
+LZ4_ROUTES = ("lz4.compress.device", "lz4.compress.host", "lz4.decompress.device",
+              "lz4.decompress.host")
+
+
+def _lz4_route_counts() -> dict:
+    snap = metrics.snapshot()
+    return {n: (snap[n]["calls"], snap[n]["bytes"]) if n in snap else (0, 0) for n in LZ4_ROUTES}
+
+
+@pytest.mark.parametrize("name", list(LZ4_EDGE_SIZES))
+def test_lz4_edge_sizes_on_cuda_equal_the_host_frames(cuda, name):
+    """Each edge entry written and read through the Writer and Reader with
+    the card installed gives its content, as the host route's frames do;
+    the host decoder reads the card's frames; each step counts the route
+    its size names, once, with its bytes, and the card's route launches."""
+    size = LZ4_EDGE_SIZES[name]
+    data = (np.random.default_rng(size).integers(0, 256, size, dtype=np.uint8).tobytes()
+            if name == "media" else _text(size + 8, 55)[:size])
+    opts = CompressOptions(CompressionMethod.LZ4, 1)
+    engine.uninstall()
+    host = Writer.to_heap()
+    host.write_archive([(name, data, opts)])
+    engine.install(cuda)
+    try:
+        c0, mark = _lz4_route_counts(), launches()
+        w = Writer.to_heap()
+        w.write_archive([(name, data, opts)])
+        c1, made, mark = _lz4_route_counts(), launches(mark), launches()
+        got = Reader.from_memory(w.buffer).read_file(name)
+        c2, read = _lz4_route_counts(), launches(mark)
+        from_host = Reader.from_memory(host.buffer).read_file(name)
+    finally:
+        engine.uninstall()
+    assert got == data and from_host == data
+    assert Reader.from_memory(w.buffer).read_file(name) == data  # the host decoder
+    route = "device" if size >= 65536 else "host"
+    step = {n: (c1[n][0] - c0[n][0], c1[n][1] - c0[n][1]) if ".compress." in n
+            else (c2[n][0] - c1[n][0], c2[n][1] - c1[n][1]) for n in LZ4_ROUTES}
+    assert step == {n: (1, size) if n.endswith(route) else (0, 0) for n in LZ4_ROUTES}
+    if route == "host":
+        assert w.buffer == host.buffer and not read
+    else:
+        # one tokenizer launch: the entry is one step of the pipeline
+        assert sum(made.values()) == 1 and all(k.startswith("lz4_tokenize") for k in made)
+        # raw blocks alone leave nothing to parse or replay
+        want = 0 if name == "media" else 1
+        assert (read["lz4_parse"], read["lz4_replay"]) == (want, want)
+
+
 def test_reader_reads_zstd_on_cuda_through_all_four_kernels(cuda):
     rng = np.random.default_rng(45)
     data = _text(3 << 20, 46) + rng.integers(0, 256, 300000, dtype=np.uint8).tobytes()

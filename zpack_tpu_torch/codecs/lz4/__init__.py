@@ -10,6 +10,11 @@ byte-identical.  Frames whose header says the blocks are linked go to the
 host decoder.  Streaming (``decompressor()``, what the CLI's ``x`` and ``t``
 use) stays on the host ``FrameDecompressor``.  The device routes swallow no
 error: a CUDA or build error propagates.
+
+Each entry counts its route in the registry, under its codec phase: one
+``lz4.compress.device`` or ``lz4.compress.host``, one
+``lz4.decompress.device`` or ``lz4.decompress.host`` (the Reader's in-place
+decode of a many-frame entry counts the last), with the entry's bytes.
 """
 
 from __future__ import annotations
@@ -49,7 +54,9 @@ class LZ4Codec(Codec):
                 # device engine: block-parallel tokenization on the device
                 from ...parallel.pipeline import DeviceCompressor
 
+                metrics.count("lz4.compress.device", nbytes=len(data))
                 return DeviceCompressor(dev, level).compress(bytes(data))
+            metrics.count("lz4.compress.host", nbytes=len(data))
             if len(data) > (2 << 20):
                 # one linked frame per 2 MiB chunk: encode chunks AND
                 # decode frames in parallel; the only ratio cost is one
@@ -65,13 +72,16 @@ class LZ4Codec(Codec):
     def decompress(self, data: bytes, uncomp_size: int | None = None) -> bytes:
         from ...utils.observe import metrics
 
-        with metrics.phase("lz4.decompress", uncomp_size or len(data)):
+        nbytes = uncomp_size or len(data)
+        with metrics.phase("lz4.decompress", nbytes):
             dev = device()
             if dev is not None and not _linked_frame(data):
                 # device engine: batched device sequence replay
                 from ...parallel.extract import decompress_lz4f_batched
 
+                metrics.count("lz4.decompress.device", nbytes=nbytes)
                 return decompress_lz4f_batched(bytes(data), uncomp_size, device=dev)
+            metrics.count("lz4.decompress.host", nbytes=nbytes)
             if len(data) > (1 << 20):
                 # concatenated frames (the chunked encoder's output) decode
                 # frame-parallel; returns None for single/foreign frames

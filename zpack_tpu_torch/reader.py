@@ -193,6 +193,7 @@ class Reader:
             if sum(b[2] for b in bounds) != e.uncomp_size:
                 return None
         with metrics.phase("lz4.decompress", e.uncomp_size):
+            metrics.count("lz4.decompress.host", nbytes=e.uncomp_size)
             return native.lz4f_decompress_frames(base, bounds)
 
     def read_raw_file(self, entry) -> bytes:

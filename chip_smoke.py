@@ -11,6 +11,10 @@
    format each admits (one hash bucket as long as the window, buckets across
    every warp's stretch, widths that are no power of two, dictionary
    windows, the end-of-window rules, chains longer than the depth; exact);
+   then the block serializer on the tokenizer's tables of the main path's
+   step and on every case of ``kernels/serialize_cases.py`` in both wire
+   formats, against the native serializer and the plain version (exact),
+   the kernel timed by CUDA events;
 3. holds the sequence replay kernel against its plain version on the
    replay batch of the main path's frames, on RLE-heavy blocks and on the
    adversarial batches of ``kernels/replay_cases.py`` (copy chains, sources
@@ -38,7 +42,7 @@
    installed (their default device is the GPU), over a deterministic 64 MiB
    corpus; the bytes
    must round-trip, the host decoder must read the port's frames, and the
-   LZ4 match finder, parse and replay must have been launched by that run;
+   LZ4 match finder, serializer, parse and replay must have been launched by that run;
 6. zstd compress: a first ``DeviceCompressor.compress_zstd`` run over a
    16 MiB cut of the corpus records the Huffman and FSE batches it builds;
    the Huffman literal-stream kernel and the FSE sequence-stream kernel are
@@ -169,7 +173,7 @@ ONE_THREAD_HUFFMAN_MS = 1.120
 
 #: the kernels the launch lines print, zeros included
 LZ4_KERNELS = ("lz4_tokenize", "lz4_tokenize_u16", "lz4_tokenize_hash", "lz4_tokenize_scatter",
-               "lz4_parse", "lz4_replay")
+               "lz4_serialize", "lz4_parse", "lz4_replay")
 XXH3_KERNELS = ("xxh3_batch", "xxh3_stream")
 
 
@@ -411,6 +415,61 @@ def phase_replay(corpus: bytes, device, lz4_torch, extract, DeviceCompressor, lz
                       **bound(tensor_bytes(args, got), tensor_bytes(got))}
     result["max_abs_err"] = err
     return result
+
+
+def phase_lz4_serialize(corpus: bytes, device, lz4_torch) -> dict:
+    """The CUDA block serializer on the main path's step (256 blocks of 64
+    KiB in "pair" mode, the tokenizer's tables) and on every case of
+    ``kernels/serialize_cases.py`` in both wire modes, against the native
+    serializer and the plain version; the wrapper timed by CUDA events, the
+    plain version and the native serializer by the host clock."""
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.kernels import serialize_cases
+
+    blocks = tokenizer_blocks(corpus, device)
+    arrays, _ = lz4_torch.tokenize_est(blocks, 2, lz4_torch.CAPJ, "pair")
+    n = blocks.numel()
+    got = bytes(lz4_torch.sections(lz4_torch.serialize_sections(blocks, arrays, "pair", n).cpu()))
+    rows = blocks.cpu().numpy()
+    host = [a.cpu().numpy() for a in arrays]
+    t0 = time.perf_counter()
+    want = native.lz4_serialize_blocks_packed(rows.tobytes(), "pair", host, BLOCK)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = lz4_torch.serialize_plain(rows, host, "pair", n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not got == want == plain:
+        raise AssertionError("lz4_serialize: the kernel, the native serializer and the plain "
+                             "version differ on the main path's step")
+    # the longest block's sequences, the walker's chain
+    longest, off = 0, 0
+    while off < len(got):
+        size = int.from_bytes(got[off:off + 4], "little")
+        if not size >> 31:
+            seqs = lz4_torch.parse_block_sequences(got[off + 4:off + 4 + size])[0]
+            longest = max(longest, len(seqs))
+        off += 4 + (size & 0x7FFFFFFF)
+    cases = 0
+    for mode in lz4_torch.SERIALIZE_MODES:
+        for name, (crows, carrays, cn) in serialize_cases.cases(mode).items():
+            buf = lz4_torch.serialize_sections(torch.from_numpy(crows).to(device),
+                                               [torch.from_numpy(a).to(device) for a in carrays],
+                                               mode, cn)
+            cwant = native.lz4_serialize_blocks_packed(crows.reshape(-1)[:cn].tobytes(), mode,
+                                                       carrays, crows.shape[1])
+            if bytes(lz4_torch.sections(buf.cpu())) != cwant:
+                raise AssertionError(f"lz4_serialize on {name!r} ({mode}): kernel != native")
+            cases += 1
+    ms = cuda_ms(lambda: lz4_torch.serialize_sections(blocks, arrays, "pair", n), 10)
+    # blocks and tables in; the sections written to their slots, read and placed
+    moved = tensor_bytes(blocks, arrays) + 3 * len(got)
+    print(f"lz4_serialize main-path step ({len(rows)} x 64 KiB, {len(got)} section bytes, "
+          f"longest block {longest} sequences): equal to the native serializer and the plain "
+          f"version; {cases} cases equal to native in both modes; kernel {ms:.3f} ms "
+          f"({n / ms / 1e3:.1f} MB/s), native {native_ms:.3f} ms, plain {plain_ms:.3f} ms (host)")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "native_ms": native_ms,
+            **bound(moved, chain_steps=longest), "longest_block_sequences": longest,
+            "blocks": len(rows), "section_bytes": len(got)}
 
 
 def phase_lz4_parse(corpus: bytes, device, lz4_torch, extract, DeviceCompressor) -> dict:
@@ -703,7 +762,7 @@ def phase_main_path(corpus: bytes, device) -> dict:
     launches = launch_counts(mark, LZ4_KERNELS)
     print("main path phases: " + json.dumps(metrics.snapshot(), sort_keys=True))
     print(f"main path launches: {json.dumps(launches)}")
-    for k in ("lz4_tokenize", "lz4_parse", "lz4_replay"):
+    for k in ("lz4_tokenize", "lz4_serialize", "lz4_parse", "lz4_replay"):
         if launches[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
     e = r.get_file_entry("bench.bin")
@@ -1844,6 +1903,7 @@ def main() -> int:
 
     tok = phase_tokenize(corpus, device, lz4_torch)
     tc = phase_tokenize_cases(device, lz4_torch)
+    ser = phase_lz4_serialize(corpus, device, lz4_torch)
     rep = phase_replay(corpus, device, lz4_torch, extract, DeviceCompressor, lz4block)
     lp = phase_lz4_parse(corpus, device, lz4_torch, extract, DeviceCompressor)
     sets = xxh3_sets(corpus)
@@ -1916,6 +1976,10 @@ def main() -> int:
          "replaces": "zpack_tpu/parallel/pipeline.py:92",
          "launches": sum(n for k, n in d_launches[4096].items() if k.startswith("lz4_tokenize")),
          **ep["lz4_est"], "max_abs_err": max(ep["lz4_est"]["max_abs_err"], tc["lz4_est"])},
+        {"name": "lz4_serialize", "route": "cuda",
+         "source": "zpack_tpu_torch/csrc/lz4_serialize.cu",
+         "replaces": "none: written new for the card (zpack_tpu/native.py:284, host)",
+         "launches": launches["lz4_serialize"], **ser},
         {"name": "lz4_parse", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_parse.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:433",
          "launches": launches["lz4_parse"], **lp},

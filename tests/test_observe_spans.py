@@ -261,8 +261,11 @@ PARENTS = {
     "lz4.compress.host": {"lz4.compress"},
     "lz4.decompress.device": {"lz4.decompress"},
     "lz4.decompress.host": {"lz4.decompress"},
+    # each shard's serializer route, under its serialize phase (the CPU's here)
+    "lz4.serialize.host": {"torch.serialize"},
 }
-ROUTE_COUNTS = [n for n in PARENTS if n.startswith(("lz4.compress.", "lz4.decompress."))]
+ROUTE_COUNTS = [n for n in PARENTS
+                if n.startswith(("lz4.compress.", "lz4.decompress.", "lz4.serialize."))]
 
 
 @pytest.mark.parametrize("name", sorted(PARENTS))
@@ -468,10 +471,10 @@ KERNEL_MODULES = {
          ("_rep_launch", "name")],
         {"fse_encode", "fse_decode", "rep_totals", "rep_apply"}),
     "kernels/lz4_torch.py": (
-        [("tokenize_est", "launch_key(mode)"), ("parse_batch", "'lz4_parse'"),
-         ("replay_enqueue", "'lz4_replay'")],
+        [("tokenize_est", "launch_key(mode)"), ("serialize_sections", "'lz4_serialize'"),
+         ("parse_batch", "'lz4_parse'"), ("replay_enqueue", "'lz4_replay'")],
         {"lz4_tokenize", "lz4_tokenize_u16", "lz4_tokenize_hash", "lz4_tokenize_scatter",
-         "lz4_parse", "lz4_replay"}),
+         "lz4_serialize", "lz4_parse", "lz4_replay"}),
     "kernels/xxh3_torch.py": (
         [("accumulate_batch", "'xxh3_batch'"), ("accumulate_stream", "'xxh3_stream'")],
         {"xxh3_batch", "xxh3_stream"}),
@@ -584,7 +587,8 @@ def _route_sites(tree) -> list:
 
 
 #: each module's LZ4 route counts (function, name, codec phase open) in
-#: source order: one count an entry, whichever branch it takes
+#: source order: one count an entry, whichever branch it takes; the
+#: pipeline's one a shard, by where its blocks were serialized
 ROUTE_MODULES = {
     "codecs/lz4/__init__.py": [
         ("compress", "lz4.compress.device", "lz4.compress"),
@@ -592,12 +596,16 @@ ROUTE_MODULES = {
         ("decompress", "lz4.decompress.device", "lz4.decompress"),
         ("decompress", "lz4.decompress.host", "lz4.decompress")],
     "reader.py": [("_read_lz4_inplace", "lz4.decompress.host", "lz4.decompress")],
+    "parallel/pipeline.py": [
+        ("compress", "lz4.serialize.device", "torch.serialize"),
+        ("compress", "lz4.serialize.host", "torch.serialize")],
 }
 
 
 def test_every_route_count_is_at_its_site():
     """The LZ4 routes are counted at their known sites only, each inside
-    its codec phase, and nowhere else in the package."""
+    its phase (the codec's; the serializer's for a shard's serializer),
+    and nowhere else in the package."""
     found = {}
     for path in sorted(PKG.rglob("*.py")):
         sites = _route_sites(ast.parse(path.read_text()))

@@ -25,8 +25,8 @@ from rep_cases import REP_EDGE_LENGTHS, rep_edge_case
 from zpack_tpu_torch.errors import DecompressError
 from zpack_tpu_torch.kernels import (assemble_cases, assemble_torch, fse_cases, fse_encode_cases,
                                      fse_torch, huffman_cases, huffman_encode_cases, huffman_torch,
-                                     lz4_parse_cases, lz4_torch, replay_cases, tokenize_cases,
-                                     xxh3_cases, xxh3_torch, zstd_chain)
+                                     lz4_parse_cases, lz4_torch, replay_cases, serialize_cases,
+                                     tokenize_cases, xxh3_cases, xxh3_torch, zstd_chain)
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
 from zpack_tpu_torch.utils.observe import launches, metrics
@@ -815,7 +815,8 @@ def test_lz4_edge_sizes_on_cuda_equal_the_host_frames(cuda, name):
     """Each edge entry written and read through the Writer and Reader with
     the card installed gives its content, as the host route's frames do;
     the host decoder reads the card's frames; each step counts the route
-    its size names, once, with its bytes, and the card's route launches."""
+    its size names, once, with its bytes, and the card's route launches
+    the tokenizer and the serializer once each."""
     size = LZ4_EDGE_SIZES[name]
     data = (np.random.default_rng(size).integers(0, 256, size, dtype=np.uint8).tobytes()
             if name == "media" else _text(size + 8, 55)[:size])
@@ -843,8 +844,8 @@ def test_lz4_edge_sizes_on_cuda_equal_the_host_frames(cuda, name):
     if route == "host":
         assert w.buffer == host.buffer and not read
     else:
-        # one tokenizer launch: the entry is one step of the pipeline
-        assert sum(made.values()) == 1 and all(k.startswith("lz4_tokenize") for k in made)
+        # one step of the pipeline: one tokenizer launch and the serializer's
+        assert made == {"lz4_tokenize": 1, "lz4_serialize": 1}
         # raw blocks alone leave nothing to parse or replay
         want = 0 if name == "media" else 1
         assert (read["lz4_parse"], read["lz4_replay"]) == (want, want)
@@ -1111,6 +1112,105 @@ def test_native_enqueue_spans_sit_under_the_read(cuda):
     kernels = {k: v for k, v in snap.items() if k.startswith("launch.")}
     assert set(kernels) == {f"launch.{k}" for k in zstd_chain.KERNELS}
     assert all(v["parents"] == {"torch.zstd_enqueue": 1} for v in kernels.values())
+
+
+# ---------------------------------------------------------------------------
+# The LZ4 block serializer
+# ---------------------------------------------------------------------------
+
+def _hold_serializer(cuda, rows: np.ndarray, arrays, mode: str, n: int) -> bytes:
+    """The kernel's sections on ``rows`` and their tables: one launch, equal
+    to the plain version's and to the native serializer's."""
+    want = native.lz4_serialize_blocks_packed(rows.reshape(-1)[:n].tobytes(), mode, arrays,
+                                              rows.shape[1])
+    assert lz4_torch.serialize_plain(rows, arrays, mode, n) == want
+    mark = launches()
+    buf = lz4_torch.serialize_sections(torch.from_numpy(rows).to(cuda),
+                                       [torch.from_numpy(a).to(cuda) for a in arrays], mode, n)
+    assert launches(mark)["lz4_serialize"] == 1
+    assert buf.shape == (lz4_torch.SERIALIZE_HEADER + n + 4 * len(rows),)
+    assert bytes(lz4_torch.sections(buf.cpu())) == want
+    return want
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+@pytest.mark.parametrize("name", serialize_cases.NAMES)
+def test_serialize_kernel_matches_plain_and_native_on_cases(cuda, name, mode):
+    rows, arrays, n = serialize_cases.cases(mode)[name]
+    _hold_serializer(cuda, rows, arrays, mode, n)
+
+
+@pytest.mark.parametrize("mode,B", [("u16", 4096), ("pair", 4096), ("u16", 8192),
+                                    ("pair", 8192), ("pair", 65536)])
+def test_serialize_kernel_on_the_tokenizers_tables(cuda, mode, B):
+    rng = np.random.default_rng(B)
+    data = (_text(3 * B + 1234, 91) + rng.integers(0, 256, B, dtype=np.uint8).tobytes()
+            + bytes(B + 17) + (b"xy" * B)[:B - 5] + _text(777, 92))
+    nb = -(-len(data) // B)
+    rows = np.zeros((nb, B), dtype=np.uint8)
+    rows.reshape(-1)[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+    arrays, _est = lz4_torch.tokenize_est(torch.from_numpy(rows).to(cuda), 2, lz4_torch.CAPJ, mode)
+    body = _hold_serializer(cuda, rows, [a.cpu().numpy() for a in arrays], mode, len(data))
+    frame = lz4frame._header(64 << 10, True, False, None) + body + bytes(4)
+    assert lz4frame.decompress_frame(frame, len(data)) == data
+
+
+def test_serialize_kernel_refuses_what_it_cannot_take(cuda):
+    rows = torch.zeros((2, 4096), dtype=torch.uint8, device=cuda)
+    arrays, _ = lz4_torch.tokenize_est(rows, 2, lz4_torch.CAPJ, "hash")
+    with pytest.raises(ValueError, match="wire modes"):
+        lz4_torch.serialize_sections(rows, arrays, "hash", 8192)
+    arrays, _ = lz4_torch.tokenize_est(rows, 2, lz4_torch.CAPJ, "pair")
+    with pytest.raises(ValueError, match="do not fit"):
+        lz4_torch.serialize_sections(rows, arrays, "pair", 8193)
+    with pytest.raises(ValueError, match="wire arrays"):
+        lz4_torch.serialize_sections(rows, arrays[:1], "pair", 8192)
+
+
+@pytest.mark.parametrize("B", [4096, 8192, 65536])
+def test_device_compressor_serializes_on_the_card(cuda, monkeypatch, B):
+    """The card's frames are the CPU route's bytes, over several steps, with
+    one serializer launch and one wait a shard, the route counted under
+    ``torch.serialize``, and the native serializer never called."""
+    rng = np.random.default_rng(B + 1)
+    data = (_text(20 * B + 99, 93) + rng.integers(0, 256, 3 * B, dtype=np.uint8).tobytes()
+            + bytes(2 * B) + _text(5 * B + 7, 94))
+    edges = (b"", b"a", _text(12, 95), _text(13, 96), _text(B + 1, 97))
+    cpu = DeviceCompressor("cpu", block_size=B)
+    want, edge_want = cpu.compress(data), [cpu.compress(d) for d in edges]
+    monkeypatch.setattr(DeviceCompressor, "BYTES_PER_STEP", 8 * B)
+    monkeypatch.setattr(native, "lz4_serialize_blocks_packed",
+                        lambda *a, **k: pytest.fail("the card's route called the host serializer"))
+    metrics.reset()
+    mark = launches()
+    got = DeviceCompressor(cuda, block_size=B).compress(data)
+    shards = -(-len(data) // (8 * B))
+    run = launches(mark)
+    snap = metrics.snapshot()
+    assert got == want
+    assert lz4frame.decompress_frame(got, len(data)) == data
+    assert run["lz4_serialize"] == shards
+    assert run[lz4_torch.launch_key("u16" if B <= 8192 else "pair")] == shards
+    assert snap["torch.d2h.wait"]["calls"] == shards
+    assert snap["lz4.serialize.device"]["calls"] == shards
+    assert snap["lz4.serialize.device"]["bytes"] == len(data)
+    assert snap["lz4.serialize.device"]["parents"] == {"torch.serialize": shards}
+    assert "lz4.serialize.host" not in snap
+    assert [DeviceCompressor(cuda, block_size=B).compress(d) for d in edges] == edge_want
+
+
+def test_device_compressor_on_two_shards_serializes_each_on_its_card(cuda, monkeypatch):
+    from zpack_tpu_torch.parallel.pipeline import make_mesh
+
+    data = _text(3 << 20, 98) + np.random.default_rng(98).integers(
+        0, 256, 700_001, dtype=np.uint8).tobytes()
+    want = DeviceCompressor("cpu").compress(data)
+    monkeypatch.setattr(DeviceCompressor, "BYTES_PER_STEP", 1 << 20)
+    mark = launches()
+    got = DeviceCompressor(make_mesh(["cuda:0", "cuda:0"])).compress(data)
+    # 58 blocks of 64 KiB, 16 a shard: 4 shards in 2 steps, the last short
+    assert launches(mark)["lz4_serialize"] == 4
+    assert got == want
 
 
 # ---------------------------------------------------------------------------

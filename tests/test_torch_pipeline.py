@@ -17,9 +17,10 @@ from zpack_tpu.parallel.pipeline import MeshCompressor, make_mesh
 from zpack_tpu_torch import native
 from zpack_tpu_torch.codecs.lz4 import frame as lz4frame
 from zpack_tpu_torch.errors import DecompressError
-from zpack_tpu_torch.kernels import lz4_torch
+from zpack_tpu_torch.kernels import lz4_torch, serialize_cases
 from zpack_tpu_torch.parallel import extract
 from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
+from zpack_tpu_torch.utils.observe import Metrics
 
 torch.set_num_threads(1)
 
@@ -147,3 +148,94 @@ def test_device_compressor_requires_native_serializer(monkeypatch):
     monkeypatch.setattr(native, "lz4_serialize_blocks_packed", lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="native LZ4 serializer"):
         DeviceCompressor("cpu", block_size=4096).compress(b"x" * 10000)
+
+
+# -- the block serializer's plain version --------------------------------------
+
+def _native_sections(rows: np.ndarray, arrays, mode: str, n: int) -> bytes:
+    return native.lz4_serialize_blocks_packed(rows.reshape(-1)[:n].tobytes(), mode, arrays,
+                                              rows.shape[1])
+
+
+def test_serialize_cases_are_named_in_order():
+    assert tuple(serialize_cases.cases("pair")) == serialize_cases.NAMES
+    assert tuple(serialize_cases.cases("u16")) == serialize_cases.NAMES
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+@pytest.mark.parametrize("name", serialize_cases.NAMES)
+def test_serialize_plain_matches_the_native_serializer(name, mode):
+    """The plain version's sections are the native serializer's bytes, and
+    the CPU's ``serialize_sections`` buffer holds them behind its header."""
+    rows, arrays, n = serialize_cases.cases(mode)[name]
+    want = _native_sections(rows, arrays, mode, n)
+    assert lz4_torch.serialize_plain(rows, arrays, mode, n) == want
+    buf = lz4_torch.serialize_sections(torch.from_numpy(rows),
+                                       [torch.from_numpy(a) for a in arrays], mode, n)
+    assert buf.shape == (lz4_torch.SERIALIZE_HEADER + n + 4 * len(rows),)
+    assert bytes(lz4_torch.sections(buf)) == want
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+def test_serialize_plain_block_by_block_equals_the_whole_shard(mode):
+    """Shards of one block each (``blocks_per_step = 1``) give the whole
+    shard's sections back to back."""
+    rows, arrays, n = serialize_cases.cases(mode)["every kind side by side"]
+    B = rows.shape[1]
+    parts = [lz4_torch.serialize_plain(rows[i:i + 1], [a[i:i + 1] for a in arrays], mode,
+                                       min(B, n - i * B)) for i in range(len(rows))]
+    assert b"".join(parts) == _native_sections(rows, arrays, mode, n)
+    data = rows.reshape(-1)[:n].tobytes()
+    one = DeviceCompressor("cpu", block_size=B)
+    one.blocks_per_step = 1
+    frame = one.compress(data)
+    assert frame == DeviceCompressor("cpu", block_size=B).compress(data)
+    assert lz4frame.decompress_frame(frame, n) == data
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+def test_serialize_sections_frames_decode(mode):
+    """The sections of tokenized data behind a frame header decode to it."""
+    rows, arrays, n = serialize_cases.cases(mode)["every kind side by side"]
+    body = lz4_torch.serialize_plain(rows, arrays, mode, n)
+    frame = lz4frame._header(64 << 10, True, False, None) + body + bytes(4)
+    assert lz4frame.decompress_frame(frame, n) == rows.reshape(-1)[:n].tobytes()
+
+
+def test_sections_raise_where_a_block_overflowed():
+    buf = np.zeros(lz4_torch.SERIALIZE_HEADER + 64, dtype=np.uint8)
+    buf[:lz4_torch.SERIALIZE_HEADER].view(np.int64)[:] = (10, 0)
+    assert len(lz4_torch.sections(buf)) == 10
+    buf[:lz4_torch.SERIALIZE_HEADER].view(np.int64)[:] = (10, 2)
+    with pytest.raises(RuntimeError, match="2 block"):
+        lz4_torch.sections(buf)
+
+
+def test_serialize_sections_refuses_what_it_cannot_take():
+    rows = torch.zeros((2, 4096), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="wire modes"):
+        lz4_torch.serialize_sections(rows, lz4_torch.tokenize(rows, mode="hash"), "hash", 100)
+    pair = lz4_torch.tokenize(rows)
+    with pytest.raises(ValueError, match="do not fit"):
+        lz4_torch.serialize_sections(rows, pair, "pair", 8193)
+    wide = torch.zeros((1, 16384), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="13 bits"):
+        lz4_torch.serialize_sections(wide, lz4_torch.tokenize(wide), "u16", 100)
+
+
+def test_cpu_route_counts_the_host_serializer_a_shard(monkeypatch):
+    """On the CPU each shard goes through the native serializer, counted
+    once under ``torch.serialize`` with its bytes; no shard counts the
+    card's route."""
+    m = Metrics()
+    monkeypatch.setattr("zpack_tpu_torch.parallel.pipeline.metrics", m)
+    data = _data("mix", 4096)
+    dc = DeviceCompressor("cpu", block_size=4096)
+    dc.blocks_per_step = 2
+    assert lz4frame.decompress_frame(dc.compress(data)) == data
+    snap = m.snapshot()
+    shards = -(-len(data) // (2 * 4096))
+    assert snap["lz4.serialize.host"]["calls"] == shards
+    assert snap["lz4.serialize.host"]["bytes"] == len(data)
+    assert snap["lz4.serialize.host"]["parents"] == {"torch.serialize": shards}
+    assert "lz4.serialize.device" not in snap

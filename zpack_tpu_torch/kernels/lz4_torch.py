@@ -30,7 +30,9 @@ its rows (:func:`est_plain`).
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -410,6 +412,211 @@ def entry(device):
         rng.integers(0, 256, 16384),
     ).astype(np.uint8)
     return forward, (torch.from_numpy(sample).to(device),)
+
+
+# ---------------------------------------------------------------------------
+# Block serializer
+# ---------------------------------------------------------------------------
+
+#: the wire formats the serializer takes, in the order of the kernel's mode
+#: argument (the tokenizer's, without a dictionary)
+SERIALIZE_MODES = ("pair", "u16")
+#: bytes before the sections in a :func:`serialize_sections` buffer: their
+#: total and the count of blocks that overflowed, an int64 each
+SERIALIZE_HEADER = 16
+
+_OVERFLOW = ("lz4_serialize: {} block(s) overflowed the serializer's output bound "
+             "(match tables the tokenizer did not write)")
+
+
+def _lsic_len(v: int) -> int:
+    """Bytes that extend a length nibble for a length ``v`` (none under 15)."""
+    return (v - 15) // 255 + 1 if v >= 15 else 0
+
+
+def _lsic(v: int) -> bytes:
+    return b"\xff" * ((v - 15) // 255) + bytes([(v - 15) % 255]) if v >= 15 else b""
+
+
+def _forward(d: np.ndarray, p: int, j: int, e: int, limit: int) -> int:
+    """``e`` grown while ``p + e < limit`` and ``d[p + e] == d[j + e]``."""
+    step = 16
+    while p + e < limit:
+        k = min(step, limit - p - e)
+        diff = np.flatnonzero(d[p + e:p + e + k] != d[j + e:j + e + k])
+        if len(diff):
+            return e + int(diff[0])
+        e += k
+        step *= 2
+    return e
+
+
+def _serialize_block_plain(d: np.ndarray, src: np.ndarray, mlen: np.ndarray, cl: int):
+    """``(section, overflowed)`` of one block of ``cl`` true bytes, in the
+    phases of ``csrc/lz4_serialize.cu``."""
+    limit = max(cl - LAST_LITERALS, 0)
+    mflim = max(cl - MFLIMIT, 0)
+    pos = np.arange(len(mlen))
+    accepted = ((mlen >= MIN_MATCH) & (src >= 0) & (src < pos) & (pos - src <= 65535)
+                & (pos >= 1) & (pos < mflim))
+    cand = np.flatnonzero(accepted).tolist()
+    # 1. the chain: from p, the next accepted q and its forward length F(q),
+    #    the match clipped to limit and extended while bytes agree; then
+    #    p = q + F(q), which backward extension never moves
+    chain = []
+    p, i = 1, 0
+    while True:
+        i = bisect.bisect_left(cand, p, i)
+        if i == len(cand):
+            break
+        q = cand[i]
+        j = int(src[q])
+        f = _forward(d, q, j, min(int(mlen[q]), limit - q), limit)
+        if f < MIN_MATCH:
+            p = q + 1
+            continue
+        chain.append((q, j, f))
+        p = q + f
+    # 2. backward extension of each sequence, down to the previous one's end
+    seqs = []  # (literal start, literal length, offset, match length)
+    end = 0
+    for q, j, f in chain:
+        pp, jj = q, j
+        while pp > end and jj > 0 and d[pp - 1] == d[jj - 1]:
+            pp -= 1
+            jj -= 1
+        seqs.append((end, pp - end, q - j, f + q - pp))
+        end = q + f
+    # 3. each sequence's bytes and their scan; the host serializer's bound
+    #    on its output buffer (a conservative need before each emission)
+    room = cl + cl // 255 + 16
+    sizes = [1 + _lsic_len(ll) + ll + 2 + _lsic_len(ml - MIN_MATCH) for _, ll, _, ml in seqs]
+    starts = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).tolist()
+    over = any(o + 1 + ll // 255 + 1 + ll + 2 + ml // 255 + 1 > room
+               for o, (_, ll, _, ml) in zip(starts, seqs))
+    ll_last = cl - end
+    over |= starts[-1] + 1 + ll_last // 255 + 1 + ll_last > room
+    csz = starts[-1] + 1 + _lsic_len(ll_last) + ll_last
+    # 4. the raw-or-compressed choice, then the bytes
+    if csz >= cl:
+        return struct.pack("<I", cl | 0x80000000) + d[:cl].tobytes(), over
+    body = bytearray(struct.pack("<I", csz))
+    for lit, ll, off, ml in seqs:
+        body.append((min(ll, 15) << 4) | min(ml - MIN_MATCH, 15))
+        body += _lsic(ll) + d[lit:lit + ll].tobytes() + struct.pack("<H", off)
+        body += _lsic(ml - MIN_MATCH)
+    body.append(min(ll_last, 15) << 4)
+    body += _lsic(ll_last) + d[end:cl].tobytes()
+    return bytes(body), over
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _serialize_rows(blocks, arrays, mode: str, n: int):
+    """``(sections, blocks that overflowed)`` of the plain version."""
+    rows = _host(blocks)
+    src, mlen = from_jax_wire(mode, [_host(a) for a in arrays])
+    B = rows.shape[1]
+    parts, over = [], 0
+    for i in range(rows.shape[0]):
+        cl = min(B, n - i * B)
+        if cl <= 0:
+            break
+        section, o = _serialize_block_plain(rows[i], src[i], mlen[i], cl)
+        parts.append(section)
+        over += o
+    return b"".join(parts), over
+
+
+def serialize_plain(blocks, arrays, mode: str, n: int) -> bytes:
+    """The lz4f block sections of a shard, in plain NumPy: the contract of
+    ``csrc/lz4_serialize.cu`` and the bytes of
+    ``native.lz4_serialize_blocks_packed(data[:n], mode, arrays, B)``.
+
+    ``blocks`` (nb, B) uint8, the shard's blocks zero-padded, of which the
+    first ``n`` bytes are data; ``arrays`` the tokenizer's wire arrays in
+    ``mode`` ("pair" or "u16").  Each block of true length ``cl`` is a greedy
+    parse from position 1 below ``cl - 12``: a candidate is taken where its
+    length is 4 or more, its source lies before it and at most 65,535 back,
+    and its length, clipped to ``cl - 5`` and extended while bytes agree,
+    is still 4 or more; the match then extends backward down to the
+    previous sequence's end.  Each section is a 4-byte size (the high bit
+    for a block stored raw, which it is where the compressed bytes would
+    be ``cl`` or more) and the payload.  Raises where a block overflows the
+    host serializer's output bound, as that serializer fails."""
+    body, over = _serialize_rows(blocks, arrays, mode, n)
+    if over:
+        raise RuntimeError(_OVERFLOW.format(over))
+    return body
+
+
+def serialize_sections(blocks: torch.Tensor, arrays, mode: str, n: int) -> torch.Tensor:
+    """The block sections of a shard serialized where its tables are, for
+    one read-back.  Returns a uint8 tensor on the device of ``blocks`` of
+    ``SERIALIZE_HEADER + n + 4 * nb`` bytes: the sections' total and the
+    count of blocks that overflowed (an int64 each), then the sections of
+    :func:`serialize_plain` back to back.  The plain version on the CPU; on
+    a GPU one call of ``csrc/lz4_serialize.cu`` (its walk and its placement
+    kernels), enqueued on the current stream and not waited for."""
+    if mode not in SERIALIZE_MODES:
+        raise ValueError(f"the serializer takes the 'pair' and 'u16' wire modes, not {mode!r}")
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2:
+        raise ValueError("blocks must be a (nb, B) uint8 tensor")
+    nb, B = blocks.shape
+    if not 0 <= n <= nb * B:
+        raise ValueError(f"{n} data bytes do not fit {nb} blocks of {B}")
+    if mode == "u16" and B > 8192:
+        raise ValueError(f"mode 'u16' packs src into 13 bits: block {B} > 8192")
+    size = SERIALIZE_HEADER + n + 4 * nb
+    if blocks.device.type == "cpu":
+        body, over = _serialize_rows(blocks, arrays, mode, n)
+        out = torch.zeros(size, dtype=torch.uint8)
+        head = torch.tensor([len(body), over], dtype=torch.int64)
+        out[:SERIALIZE_HEADER] = head.view(torch.uint8)
+        out[SERIALIZE_HEADER:SERIALIZE_HEADER + len(body)] = torch.from_numpy(
+            np.frombuffer(body, dtype=np.uint8).copy())
+        return out
+    dev = blocks.device
+    if dev.type != "cuda" or not blocks.is_contiguous():
+        raise ValueError("serialize takes a contiguous CPU or CUDA tensor")
+    if (len(arrays) != len(WIRE_DTYPES[mode])
+            or any(a.dtype != t or a.shape != (nb, B) or a.device != dev or not a.is_contiguous()
+                   for a, t in zip(arrays, WIRE_DTYPES[mode]))):
+        raise ValueError(f"the {mode!r} wire arrays must be contiguous ({nb}, {B}) tensors of "
+                         f"{WIRE_DTYPES[mode]} beside the blocks")
+    out = torch.empty(size, dtype=torch.uint8, device=dev)
+    if nb == 0:
+        return out.zero_()
+    slot = -(-(4 + B + B // 255 + 16) // 16) * 16
+    # the chain in order, then 32 segments' walks and their joins
+    # (``chain_words`` in the source: a segment of at least 64 positions
+    # records at most a step in 4)
+    seg_cap = max(64, -(-B // 32)) // 4 + 2
+    chain = torch.empty((nb, B // 4 + 2 + 64 * seg_cap), dtype=torch.int32, device=dev)
+    slots = torch.empty((nb, slot), dtype=torch.uint8, device=dev)
+    sizes = torch.empty(nb, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().zp_lz4_serialize(
+            blocks.data_ptr(), nb, B, n, SERIALIZE_MODES.index(mode), arrays[0].data_ptr(),
+            arrays[1].data_ptr() if len(arrays) > 1 else None, chain.data_ptr(),
+            chain.shape[1], slots.data_ptr(), slot, sizes.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "lz4_serialize")
+    launched("lz4_serialize")
+    return out
+
+
+def sections(buf) -> memoryview:
+    """The sections of a :func:`serialize_sections` buffer on the host (a
+    numpy array or a CPU tensor), without a copy; raises where a block
+    overflowed."""
+    a = _host(buf)
+    total, over = (int(v) for v in a[:SERIALIZE_HEADER].view(np.int64))
+    if over:
+        raise RuntimeError(_OVERFLOW.format(over))
+    return memoryview(a[SERIALIZE_HEADER:SERIALIZE_HEADER + total])
 
 
 # ---------------------------------------------------------------------------

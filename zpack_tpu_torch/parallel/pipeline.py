@@ -11,9 +11,12 @@ padding row is launched: the last shard is shorter.  The wire format
 mirrors ``_step_fn``: "u16" (one uint16 per byte) when the window, the
 dictionary plus the block, is 8 KiB or less, else "pair".
 
-* ``compress``: the native serializer writes independent-block lz4f frames
-  from it.  On a GPU the steps overlap: step s+1 is copied in and tokenized
-  while the host serializes step s (pinned buffers, one event a shard).
+* ``compress``: independent-block lz4f frames.  On a GPU each shard's
+  blocks are serialized on its card beside the tables
+  (``lz4_torch.serialize_sections``), and only the finished sections come
+  back; the steps overlap: step s+1 is copied in, tokenized and serialized
+  while the host appends step s (pinned buffers, one event a shard).  On
+  the CPU the native serializer writes them from the wire format.
 * ``compress_zstd``: one zstd block per device block; the host parses the
   match tables into sequences, the Huffman literal streams and the FSE
   sequence streams of all blocks are encoded in one launch a mesh device
@@ -47,6 +50,8 @@ from .mesh import DeviceMesh, as_mesh, make_mesh  # noqa: F401  (re-exported, as
 
 #: default block: 64 KiB, like the JAX engine and the native lz4f path
 BLOCK = 64 << 10
+#: the mode ``_steps_raw`` gives a shard whose blocks were serialized on its card
+SECTIONS = "sections"
 
 
 class DeviceCompressor:
@@ -86,12 +91,15 @@ class DeviceCompressor:
             f"(dict + block_size must be <= 65536)")
 
     def _launch(self, chunk: np.ndarray, mode: str, device: torch.device,
-                dict_dev: torch.Tensor | None):
+                dict_dev: torch.Tensor | None, n_data: int | None = None):
         """Enqueue one shard on ``device``: copy in, build the windows (the
         dictionary first), tokenize, copy the wire format of the data
         positions and the shard's estimate out.  Returns the host tensors,
         the estimate last, and the event that marks them ready (None on the
-        CPU, where the shard ran synchronously)."""
+        CPU, where the shard ran synchronously).  With ``n_data``, the
+        shard's data bytes (a card only), the blocks are serialized there
+        too, and the one host tensor is the sections' buffer
+        (``lz4_torch.serialize_sections``) in place of the tables."""
         blocks = torch.from_numpy(chunk)
         cuda = device.type == "cuda"
         blocks = (blocks.pin_memory().to(device, non_blocking=True) if cuda
@@ -103,20 +111,25 @@ class DeviceCompressor:
         arrays, est = lz4_torch.tokenize_est(blocks, self.depth, lz4_torch.CAPJ, mode, dict_pad)
         if not cuda:
             return (*arrays, est), None
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     for t in (*arrays, est))
-        for h, t in zip(host, (*arrays, est)):
+        outs = (*arrays, est)
+        if n_data is not None:
+            outs = (lz4_torch.serialize_sections(blocks, arrays, mode, n_data),)
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs)
+        for h, t in zip(host, outs):
             h.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(device))
         return host, done
 
-    def _steps_raw(self, data: bytes, dictionary: bytes | None = None):
+    def _steps_raw(self, data: bytes, dictionary: bytes | None = None,
+                   sections: bool = False):
         """Yield (first_block, mode, wire arrays, est) a shard, in block
         order, with step s+1's shards enqueued before step s's are handed to
         the caller.  The wire arrays are ``(src u16, code u8)`` in "pair"
         mode and ``(tok u16,)`` in "u16" mode, each (blocks of the shard,
-        B).  ``dictionary`` is copied once to each distinct mesh device."""
+        B).  ``dictionary`` is copied once to each distinct mesh device.
+        With ``sections`` a shard on a card yields (first_block,
+        :data:`SECTIONS`, (its sections' buffer,), None) instead."""
         B = self.block_size
         n = len(data)
         nb = max(1, math.ceil(n / B))
@@ -139,8 +152,10 @@ class DeviceCompressor:
                 with metrics.phase("torch.stage", len(seg)):
                     chunk = np.zeros((hi - lo, B), dtype=np.uint8)
                     chunk.reshape(-1)[: len(seg)] = seg
+                on_card = sections and dev.type == "cuda"
                 with metrics.phase("torch.dispatch", len(seg)):
-                    launched.append((lo, mode, self._launch(chunk, mode, dev, dict_dev[dev])))
+                    launched.append((lo, SECTIONS if on_card else mode, self._launch(
+                        chunk, mode, dev, dict_dev[dev], len(seg) if on_card else None)))
             for p in pending:
                 yield self._wait(p)
             pending = launched
@@ -156,23 +171,34 @@ class DeviceCompressor:
             with metrics.phase("torch.d2h.wait", sum(t.nbytes for t in host)):
                 if done is not None:
                     done.synchronize()
-                *arrays, est = (t.cpu().numpy() for t in host)
+                host = tuple(t.cpu().numpy() for t in host)
+            if mode == SECTIONS:
+                return lo, mode, host, None
+            *arrays, est = host
             return lo, mode, tuple(arrays), int(est[0])
 
     def compress(self, data: bytes) -> bytes:
-        """One lz4f frame of independent blocks: device tokenization, host
-        serialization by ``native.lz4_serialize_blocks_packed``, which takes
-        the "pair" and the "u16" wire format as they come."""
+        """One lz4f frame of independent blocks: device tokenization, then
+        each shard's sections serialized on its card and appended as they
+        come back; on the CPU, host serialization by
+        ``native.lz4_serialize_blocks_packed``, which takes the "pair" and
+        the "u16" wire format as they come.  Both write the same bytes."""
         data = bytes(data)
         B = self.block_size
         n = len(data)
         # B <= 64 KiB, so the declared frame block size is the smallest, 64 KiB
         out = bytearray(lz4frame._header(64 << 10, True, False, None))
-        for lo, mode, host, _est in self._steps_raw(data):
-            end = min(n, (lo + len(host[0])) * B)
+        for lo, mode, host, _est in self._steps_raw(data, sections=True):
+            end = min(n, (lo + self.blocks_per_step) * B)
+            if mode == SECTIONS:
+                with metrics.phase("torch.serialize", end - lo * B):
+                    metrics.count("lz4.serialize.device", nbytes=end - lo * B)
+                    out += lz4_torch.sections(host[0])
+                continue
             with metrics.phase("torch.frame", end - lo * B):
                 seg = data[lo * B : end]
             with metrics.phase("torch.serialize", len(seg)):
+                metrics.count("lz4.serialize.host", nbytes=len(seg))
                 body = native.lz4_serialize_blocks_packed(seg, mode, host, B)
             if body is None:
                 raise RuntimeError(

@@ -14,7 +14,11 @@
    then the block serializer on the tokenizer's tables of the main path's
    step and on every case of ``kernels/serialize_cases.py`` in both wire
    formats, against the native serializer and the plain version (exact),
-   the kernel timed by CUDA events;
+   the kernel timed by CUDA events; and its HC parse (LZ4's high-compression
+   levels) on that step, tokenized at an HC level's comparison at depth 8
+   and at the cap, and on every case and HC case, against the native HC
+   serializer and the plain version (exact), the match finder and the
+   serializer timed at each depth;
 3. holds the sequence replay kernel against its plain version on the
    replay batch of the main path's frames, on RLE-heavy blocks and on the
    adversarial batches of ``kernels/replay_cases.py`` (copy chains, sources
@@ -470,6 +474,78 @@ def phase_lz4_serialize(corpus: bytes, device, lz4_torch) -> dict:
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "native_ms": native_ms,
             **bound(moved, chain_steps=longest), "longest_block_sequences": longest,
             "blocks": len(rows), "section_bytes": len(got)}
+
+
+def phase_lz4_serialize_hc(corpus: bytes, device, lz4_torch) -> dict:
+    """The serializer's HC parse (LZ4's high-compression levels) on the
+    main path's step, its tables from the match finder at an HC level's
+    comparison and at depth 8 and at the cap, and on every case and HC case
+    of ``kernels/serialize_cases.py`` in both wire modes: the kernel against
+    the native HC serializer and the plain version.  At each depth the
+    match finder's tables and estimate first against the plain versions
+    (exact), since all three serializers read the same tables.  The match
+    finder and the serializer timed by CUDA events at each depth."""
+    from zpack_tpu_torch import native
+    from zpack_tpu_torch.kernels import serialize_cases
+
+    blocks = tokenizer_blocks(corpus, device)
+    n = blocks.numel()
+    rows = blocks.cpu().numpy()
+    capj = lz4_torch.HC_CAPJ["pair"]
+    out = {}
+    for depth in (8, lz4_torch.HC_DEPTH_CAP):
+        arrays, est = lz4_torch.tokenize_est(blocks, depth, capj, "pair")
+        want_arrays = lz4_torch.tokenize_plain(blocks, depth, capj, "pair")
+        torch.cuda.synchronize()
+        e = max_abs_err(arrays, want_arrays)
+        ee = int((est - lz4_torch.est_plain(want_arrays, "pair")).abs().max())
+        print(f"tokenize HC depth={depth} capj={capj}, main-path step: "
+              f"{'equal' if e == ee == 0 else 'DIFFERENT'} (tables max_abs_err {e}, "
+              f"estimate {ee}), {int((want_arrays[1] > 0).sum())} match positions")
+        if e or ee:
+            raise AssertionError(f"tokenize kernel != plain at depth {depth} capj {capj} "
+                                 "on the main path's step")
+        del want_arrays
+        got = bytes(lz4_torch.sections(
+            lz4_torch.serialize_sections(blocks, arrays, "pair", n, "hc").cpu()))
+        host = [a.cpu().numpy() for a in arrays]
+        t0 = time.perf_counter()
+        want = native.lz4_serialize_blocks_hc(rows.tobytes(), "pair", host, BLOCK)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain = lz4_torch.serialize_plain(rows, host, "pair", n, "hc")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not got == want == plain:
+            raise AssertionError(f"lz4_serialize (HC) at depth {depth}: the kernel, the native "
+                                 "serializer and the plain version differ on the main path's step")
+        tok_ms = cuda_ms(lambda: lz4_torch.tokenize_est(blocks, depth, capj, "pair"), 10)
+        ms = cuda_ms(lambda: lz4_torch.serialize_sections(blocks, arrays, "pair", n, "hc"), 10)
+        greedy = len(lz4_torch.sections(
+            lz4_torch.serialize_sections(blocks, arrays, "pair", n).cpu()))
+        print(f"lz4_serialize HC, main-path step at depth {depth}, capj {capj}: {len(got)} "
+              f"section bytes (greedy {greedy}), equal to the native HC serializer and the "
+              f"plain version; kernel {ms:.3f} ms, tokenize {tok_ms:.3f} ms, native "
+              f"{native_ms:.3f} ms, plain {plain_ms:.3f} ms (host)")
+        out[f"depth_{depth}"] = {"ms": ms, "tokenize_ms": tok_ms, "native_ms": native_ms,
+                                 "tokenize_max_abs_err": e, "est_err": ee,
+                                 "plain_ms": plain_ms, "section_bytes": len(got),
+                                 "greedy_section_bytes": greedy}
+    cases = 0
+    for mode in lz4_torch.SERIALIZE_MODES:
+        both = serialize_cases.cases(mode) | serialize_cases.hc_cases(mode)
+        for name, (crows, carrays, cn) in both.items():
+            buf = lz4_torch.serialize_sections(torch.from_numpy(crows).to(device),
+                                               [torch.from_numpy(a).to(device) for a in carrays],
+                                               mode, cn, "hc")
+            cwant = native.lz4_serialize_blocks_hc(crows.reshape(-1)[:cn].tobytes(), mode,
+                                                   carrays, crows.shape[1])
+            if (bytes(lz4_torch.sections(buf.cpu())) != cwant
+                    or lz4_torch.serialize_plain(crows, carrays, mode, cn, "hc") != cwant):
+                raise AssertionError(f"lz4_serialize (HC) on {name!r} ({mode}): the kernel, the "
+                                     "native serializer and the plain version differ")
+            cases += 1
+    print(f"lz4_serialize HC: {cases} cases equal to native and plain in both modes")
+    return {**out, "cases": cases}
 
 
 def phase_lz4_parse(corpus: bytes, device, lz4_torch, extract, DeviceCompressor) -> dict:
@@ -1904,6 +1980,7 @@ def main() -> int:
     tok = phase_tokenize(corpus, device, lz4_torch)
     tc = phase_tokenize_cases(device, lz4_torch)
     ser = phase_lz4_serialize(corpus, device, lz4_torch)
+    ser_hc = phase_lz4_serialize_hc(corpus, device, lz4_torch)
     rep = phase_replay(corpus, device, lz4_torch, extract, DeviceCompressor, lz4block)
     lp = phase_lz4_parse(corpus, device, lz4_torch, extract, DeviceCompressor)
     sets = xxh3_sets(corpus)
@@ -1979,7 +2056,7 @@ def main() -> int:
         {"name": "lz4_serialize", "route": "cuda",
          "source": "zpack_tpu_torch/csrc/lz4_serialize.cu",
          "replaces": "none: written new for the card (zpack_tpu/native.py:284, host)",
-         "launches": launches["lz4_serialize"], **ser},
+         "launches": launches["lz4_serialize"], **ser, "hc": ser_hc},
         {"name": "lz4_parse", "route": "cuda", "source": "zpack_tpu_torch/csrc/lz4_parse.cu",
          "replaces": "zpack_tpu/kernels/lz4_jax.py:433",
          "launches": launches["lz4_parse"], **lp},

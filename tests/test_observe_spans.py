@@ -471,10 +471,10 @@ KERNEL_MODULES = {
          ("_rep_launch", "name")],
         {"fse_encode", "fse_decode", "rep_totals", "rep_apply"}),
     "kernels/lz4_torch.py": (
-        [("tokenize_est", "launch_key(mode)"), ("serialize_sections", "'lz4_serialize'"),
+        [("tokenize_est", "launch_key(mode)"), ("serialize_sections", "SERIALIZE_KEYS[k]"),
          ("parse_batch", "'lz4_parse'"), ("replay_enqueue", "'lz4_replay'")],
         {"lz4_tokenize", "lz4_tokenize_u16", "lz4_tokenize_hash", "lz4_tokenize_scatter",
-         "lz4_serialize", "lz4_parse", "lz4_replay"}),
+         "lz4_serialize", "lz4_serialize_hc", "lz4_parse", "lz4_replay"}),
     "kernels/xxh3_torch.py": (
         [("accumulate_batch", "'xxh3_batch'"), ("accumulate_stream", "'xxh3_stream'")],
         {"xxh3_batch", "xxh3_stream"}),
@@ -558,6 +558,47 @@ def test_in_place_read_counts_the_host_route():
     assert "lz4.decompress.device" not in snap
 
 
+def test_hc_levels_count_each_lz4_entry_on_either_route():
+    """The bytes LZ4's high-compression mode took count ``lz4.compress.hc``:
+    on the device route once a shard the HC parse serialized, under its
+    serializer's phase; on the host route once an entry, under its codec
+    phase.  An entry at level 1 counts none."""
+    lz4_files, _ = _entries()
+    hc = zp.CompressOptions(zp.CompressionMethod.LZ4, 9)
+    files = [(n, d, hc) for n, d, _ in lz4_files[1:]] + [lz4_files[0]]
+    before = codecs.device_setting()
+    engine.install("cpu")
+    metrics.reset()
+    try:
+        w = zp.Writer.to_heap()
+        w.write_archive(files)
+        snap = metrics.snapshot()
+        r = zp.Reader.from_memory(w.buffer)
+        for name, data, _ in files:
+            assert r.read_file(name) == data
+    finally:
+        codecs.set_device(before)
+    hc_bytes = sum(len(d) for _, d, _ in files[:2])
+    assert (snap["lz4.compress.hc"]["calls"], snap["lz4.compress.hc"]["bytes"]) == (2, hc_bytes)
+    assert snap["lz4.compress.hc"]["parents"] == {"torch.serialize": 1, "lz4.compress": 1}
+    assert snap["lz4.compress.device"]["calls"] == 2
+    assert snap["lz4.compress.host"]["calls"] == 1
+
+
+def test_hc_count_follows_the_parse_taken():
+    """The device route counts ``lz4.compress.hc`` by the parse its
+    serializer took, not by the level asked for."""
+    from zpack_tpu_torch.parallel.pipeline import DeviceCompressor
+
+    data = _entries()[0][1][1]
+    for parse, want in (("hc", len(data)), ("greedy", None)):
+        dc = DeviceCompressor("cpu", 9)
+        dc.parse = parse
+        metrics.reset()
+        dc.compress(data)
+        assert (metrics.snapshot().get("lz4.compress.hc") or {}).get("bytes") == want
+
+
 def _route_sites(tree) -> list:
     """``(function, name, phase)`` of every ``metrics.count`` of an
     ``lz4.`` name in source order, with the ``metrics.phase`` name of the
@@ -588,17 +629,21 @@ def _route_sites(tree) -> list:
 
 #: each module's LZ4 route counts (function, name, codec phase open) in
 #: source order: one count an entry, whichever branch it takes; the
-#: pipeline's one a shard, by where its blocks were serialized
+#: pipeline's one a shard, by where its blocks were serialized and, at an
+#: HC level, by the parse its serializer took
 ROUTE_MODULES = {
     "codecs/lz4/__init__.py": [
         ("compress", "lz4.compress.device", "lz4.compress"),
         ("compress", "lz4.compress.host", "lz4.compress"),
+        ("compress", "lz4.compress.hc", "lz4.compress"),
         ("decompress", "lz4.decompress.device", "lz4.decompress"),
         ("decompress", "lz4.decompress.host", "lz4.decompress")],
     "reader.py": [("_read_lz4_inplace", "lz4.decompress.host", "lz4.decompress")],
     "parallel/pipeline.py": [
         ("compress", "lz4.serialize.device", "torch.serialize"),
-        ("compress", "lz4.serialize.host", "torch.serialize")],
+        ("compress", "lz4.compress.hc", "torch.serialize"),
+        ("compress", "lz4.serialize.host", "torch.serialize"),
+        ("compress", "lz4.compress.hc", "torch.serialize")],
 }
 
 

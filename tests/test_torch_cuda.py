@@ -70,6 +70,21 @@ def test_tokenize_kernel_matches_plain(cuda, B, depth, capj):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("capj", [20, 32])
+@pytest.mark.parametrize("depth", [32, 64])
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_tokenize_kernel_matches_plain_at_hc_settings(cuda, B, depth, capj):
+    """The HC levels' deep chains and comparisons past 16 bytes (up to the
+    32 the zero pad past a window allows), in both CTA shapes."""
+    rows = np.frombuffer(b"".join(_rows(B)), np.uint8).reshape(-1, B)
+    blocks = torch.from_numpy(np.concatenate([rows, tokenize_cases.mixed_batch(B)])).to(cuda)
+    got = lz4_torch.tokenize(blocks, depth, capj)
+    want = lz4_torch.tokenize_plain(blocks, depth, capj)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].to(torch.int32), want[0].to(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
 def _windows(B: int, dict_pad: int, cuda) -> torch.Tensor:
     """Text, noise and zero rows and every adversarial case cut to ``B``
     bytes, each behind the same ``dict_pad`` bytes of dictionary."""
@@ -1118,16 +1133,20 @@ def test_native_enqueue_spans_sit_under_the_read(cuda):
 # The LZ4 block serializer
 # ---------------------------------------------------------------------------
 
-def _hold_serializer(cuda, rows: np.ndarray, arrays, mode: str, n: int) -> bytes:
-    """The kernel's sections on ``rows`` and their tables: one launch, equal
-    to the plain version's and to the native serializer's."""
-    want = native.lz4_serialize_blocks_packed(rows.reshape(-1)[:n].tobytes(), mode, arrays,
-                                              rows.shape[1])
-    assert lz4_torch.serialize_plain(rows, arrays, mode, n) == want
+def _hold_serializer(cuda, rows: np.ndarray, arrays, mode: str, n: int,
+                     parse: str = "greedy") -> bytes:
+    """The kernel's sections on ``rows`` and their tables in ``parse``: one
+    launch, equal to the plain version's and to the native serializer's."""
+    serialize = (native.lz4_serialize_blocks_hc if parse == "hc"
+                 else native.lz4_serialize_blocks_packed)
+    want = serialize(rows.reshape(-1)[:n].tobytes(), mode, arrays, rows.shape[1])
+    assert lz4_torch.serialize_plain(rows, arrays, mode, n, parse) == want
     mark = launches()
     buf = lz4_torch.serialize_sections(torch.from_numpy(rows).to(cuda),
-                                       [torch.from_numpy(a).to(cuda) for a in arrays], mode, n)
-    assert launches(mark)["lz4_serialize"] == 1
+                                       [torch.from_numpy(a).to(cuda) for a in arrays], mode, n,
+                                       parse)
+    key = lz4_torch.SERIALIZE_KEYS[lz4_torch.PARSES.index(parse)]
+    assert launches(mark) == {key: 1}
     assert buf.shape == (lz4_torch.SERIALIZE_HEADER + n + 4 * len(rows),)
     assert bytes(lz4_torch.sections(buf.cpu())) == want
     return want
@@ -1138,6 +1157,15 @@ def _hold_serializer(cuda, rows: np.ndarray, arrays, mode: str, n: int) -> bytes
 def test_serialize_kernel_matches_plain_and_native_on_cases(cuda, name, mode):
     rows, arrays, n = serialize_cases.cases(mode)[name]
     _hold_serializer(cuda, rows, arrays, mode, n)
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+@pytest.mark.parametrize("name", serialize_cases.NAMES + serialize_cases.HC_NAMES)
+def test_serialize_kernel_hc_matches_plain_and_native_on_cases(cuda, name, mode):
+    """The HC parse on every case, and on the tables of the HC levels."""
+    cases = serialize_cases.cases(mode) | serialize_cases.hc_cases(mode)
+    rows, arrays, n = cases[name]
+    _hold_serializer(cuda, rows, arrays, mode, n, "hc")
 
 
 @pytest.mark.parametrize("mode,B", [("u16", 4096), ("pair", 4096), ("u16", 8192),
@@ -1197,6 +1225,31 @@ def test_device_compressor_serializes_on_the_card(cuda, monkeypatch, B):
     assert snap["lz4.serialize.device"]["parents"] == {"torch.serialize": shards}
     assert "lz4.serialize.host" not in snap
     assert [DeviceCompressor(cuda, block_size=B).compress(d) for d in edges] == edge_want
+
+
+@pytest.mark.parametrize("level", [3, 9])
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_device_compressor_hc_levels_on_the_card(cuda, monkeypatch, B, level):
+    """At HC levels the card's frames are the CPU route's bytes: the match
+    finder at the level's depth and comparison, the serializer's HC parse,
+    one launch of each and one wait a shard, no host serializer."""
+    rng = np.random.default_rng(B + level)
+    data = (_text(12 * B + 99, 93) + rng.integers(0, 256, 2 * B, dtype=np.uint8).tobytes()
+            + bytes(B) + _text(3 * B + 7, 94))
+    want = DeviceCompressor("cpu", level, block_size=B).compress(data)
+    monkeypatch.setattr(DeviceCompressor, "BYTES_PER_STEP", 8 * B)
+    for name in ("lz4_serialize_blocks_packed", "lz4_serialize_blocks_hc"):
+        monkeypatch.setattr(native, name,
+                            lambda *a, **k: pytest.fail("the card's route called the host serializer"))
+    metrics.reset()
+    mark = launches()
+    got = DeviceCompressor(cuda, level, block_size=B).compress(data)
+    shards = -(-len(data) // (8 * B))
+    assert got == want
+    assert lz4frame.decompress_frame(got, len(data)) == data
+    assert launches(mark) == {"lz4_serialize_hc": shards,
+                              lz4_torch.launch_key("u16" if B <= 8192 else "pair"): shards}
+    assert metrics.snapshot()["torch.d2h.wait"]["calls"] == shards
 
 
 def test_device_compressor_on_two_shards_serializes_each_on_its_card(cuda, monkeypatch):

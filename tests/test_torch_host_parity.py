@@ -70,10 +70,10 @@ def test_native_library_is_the_ports_own_build():
     assert p_native.get_lib() is not None
     assert p_native._SO.parent.name == "_build" and p_native._SO.parent.parent.name == "zpack_tpu_torch"
     assert p_native._SO.exists() and p_native._SO != j_native._SO
-    # the JAX package's sources, and the zstd walk and read layout that only
-    # the port builds
+    # the JAX package's sources, and the zstd walk, the read layout and the
+    # LZ4 HC serializer that only the port builds
     assert [s.name for s in p_native._SRCS] == \
-        [s.name for s in j_native._SRCS] + ["zstd_walk.cpp", "zstd_read.cpp"]
+        [s.name for s in j_native._SRCS] + ["zstd_walk.cpp", "zstd_read.cpp", "lz4_hc.cpp"]
 
 
 def test_package_exports_match():

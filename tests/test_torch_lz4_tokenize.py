@@ -199,7 +199,7 @@ def test_tokenize_cpu_takes_plain_and_counts_no_launch():
 @pytest.mark.parametrize("bad", [
     dict(blocks=torch.zeros((1, 65537), dtype=torch.uint8)),
     dict(blocks=torch.zeros((1, 64), dtype=torch.int32)),
-    dict(blocks=torch.zeros((1, 64), dtype=torch.uint8), capj=17),
+    dict(blocks=torch.zeros((1, 64), dtype=torch.uint8), capj=33),
     dict(blocks=torch.zeros((1, 64), dtype=torch.uint8), depth=0),
     dict(blocks=torch.zeros((1, 8193), dtype=torch.uint8), mode="u16"),
     dict(blocks=torch.zeros((1, 64), dtype=torch.uint8), mode="u16", capj=12),

@@ -2,6 +2,9 @@
 mesh pipeline on one device: frames byte-identical, decoded bytes equal; and
 the twins of ``__graft_entry__.entry()`` and ``lz4_jax.compress_block_tpu``."""
 
+import pathlib
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -239,3 +242,125 @@ def test_cpu_route_counts_the_host_serializer_a_shard(monkeypatch):
     assert snap["lz4.serialize.host"]["bytes"] == len(data)
     assert snap["lz4.serialize.host"]["parents"] == {"torch.serialize": shards}
     assert "lz4.serialize.device" not in snap
+
+
+# -- LZ4's high-compression levels: the HC parse and the match settings --------
+
+def _hc_case(mode: str, name: str):
+    return (serialize_cases.cases(mode) | serialize_cases.hc_cases(mode))[name]
+
+
+def _reference_decode(frame: bytes) -> bytes:
+    """The frame's blocks decoded by the benchmark's own reference."""
+    from zbench.reference import lz4 as ref_lz4
+
+    frames, problems = ref_lz4.walk(frame)
+    assert problems == []
+    return b"".join(ref_lz4.decode_block(frame[b.start:b.start + b.size]) if b.compressed
+                    else frame[b.start:b.start + b.size] for f in frames for b in f.blocks)
+
+
+def test_hc_cases_are_named_in_order():
+    assert tuple(serialize_cases.hc_cases("pair")) == serialize_cases.HC_NAMES
+    assert tuple(serialize_cases.hc_cases("u16")) == serialize_cases.HC_NAMES
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+@pytest.mark.parametrize("name", serialize_cases.NAMES + serialize_cases.HC_NAMES)
+def test_serialize_plain_hc_matches_the_native_hc_serializer(name, mode):
+    """The HC parse's plain version is the native HC serializer's bytes, on
+    every case and on the HC levels' tables; the CPU's buffer holds them,
+    and behind a frame header they decode to the data on the host decoder
+    and on the benchmark's reference, where the tables are true."""
+    rows, arrays, n = _hc_case(mode, name)
+    data = rows.reshape(-1)[:n].tobytes()
+    want = native.lz4_serialize_blocks_hc(data, mode, arrays, rows.shape[1])
+    assert lz4_torch.serialize_plain(rows, arrays, mode, n, "hc") == want
+    buf = lz4_torch.serialize_sections(torch.from_numpy(rows),
+                                       [torch.from_numpy(a) for a in arrays], mode, n, "hc")
+    assert bytes(lz4_torch.sections(buf)) == want
+    if "past the bytes" in name:  # tables the bytes do not bear out decode to other bytes
+        return
+    frame = lz4frame._header(64 << 10, True, False, None) + want + bytes(4)
+    assert lz4frame.decompress_frame(frame, n) == data
+    assert _reference_decode(frame) == data
+
+
+@pytest.mark.parametrize("mode", lz4_torch.SERIALIZE_MODES)
+def test_hc_parse_takes_literal_steps(mode):
+    """Where a longer match starts one or two bytes on, the HC parse
+    emits literals to take it: fewer bytes than the greedy parse on the
+    planted repeats and on text, the same where no such match exists."""
+    for name in ("planted repeats at depth 32", "lengths about the lazy cap", "text at depth 8"):
+        rows, arrays, n = serialize_cases.hc_cases(mode)[name]
+        hc = lz4_torch.serialize_plain(rows, arrays, mode, n, "hc")
+        assert len(hc) < len(lz4_torch.serialize_plain(rows, arrays, mode, n)), name
+    rows, arrays, n = serialize_cases.cases(mode)["noise: every block raw"]
+    assert (lz4_torch.serialize_plain(rows, arrays, mode, n, "hc")
+            == lz4_torch.serialize_plain(rows, arrays, mode, n))
+
+
+def test_serialize_sections_refuses_an_unknown_parse():
+    rows = torch.zeros((1, 4096), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="parses"):
+        lz4_torch.serialize_sections(rows, lz4_torch.tokenize(rows), "pair", 100, "optimal")
+
+
+def test_hc_constants_are_the_pythons():
+    """The HC parse's lazy cap is stated once, ``lz4_torch.HC_LAZY_CAP``:
+    the serializer kernel's (its scan's exact reach) and the native HC
+    serializer's copies agree with it; the match finder's zero pad covers
+    the longest comparison, ``CAPJ_MAX``, and the 8 bytes its loads read
+    past it."""
+    pkg = pathlib.Path(lz4_torch.__file__).resolve().parent.parent
+    ser = (pkg / "csrc" / "lz4_serialize.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", ser)}
+    assert consts["kMinMatch"] + consts["kScanExtend"] == lz4_torch.HC_LAZY_CAP
+    assert "constexpr int kLazyCap = kMinMatch + kScanExtend;" in ser
+    hc = (pkg.parent / "native" / "lz4_hc.cpp").read_text()
+    assert int(re.search(r"constexpr size_t kLazyCap = (\d+);", hc).group(1)) == \
+        lz4_torch.HC_LAZY_CAP
+    tok = (pkg / "csrc" / "lz4_tokenize.cu").read_text()
+    assert int(re.search(r"constexpr int kPad = (\d+);", tok).group(1)) > lz4_torch.CAPJ_MAX + 7
+
+
+@pytest.mark.parametrize("level,depth", [(1, 2), (2, 2), (3, 8), (4, 8), (5, 16), (6, 32),
+                                         (7, 64), (9, 64), (12, 64)])
+def test_lz4_match_settings_follow_the_level(level, depth):
+    """Levels 1 and 2: the JAX engine's depth 2, comparison 8, greedy parse.
+    HC levels: LZ4HC's attempts 1 << (level - 1), at least 8 and at most
+    the cap, comparisons as long as the wire format holds, the HC parse.
+    ``tokenize`` and ``compress_zstd`` keep the JAX engine's depth."""
+    dc = DeviceCompressor("cpu", level)
+    hc = level >= 3
+    assert dc.parse == ("hc" if hc else "greedy")
+    assert dc._lz4_match("pair") == (depth, 32 if hc else lz4_torch.CAPJ)
+    assert dc._lz4_match("u16") == (depth, 10 if hc else lz4_torch.CAPJ)
+    assert dc.depth == (8 if hc else 2)
+
+
+@pytest.mark.parametrize("level", [3, 9, 12])
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_device_compressor_hc_frames_decode(B, level):
+    """HC-level frames decode to the content on the host decoder, the JAX
+    package's and the benchmark's reference, and store fewer bytes than
+    level 1's."""
+    data = _data("mix", B) + _mix(B + 333, seed=27) + _data("zeros", B)
+    frame = DeviceCompressor("cpu", level, block_size=B).compress(data)
+    assert lz4frame.decompress_frame(frame) == data
+    assert jax_lz4frame.decompress_frame(frame) == data
+    assert _reference_decode(frame) == data
+    assert len(frame) < len(DeviceCompressor("cpu", 1, block_size=B).compress(data))
+
+
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_level_2_keeps_the_mesh_bytes(B):
+    """Level 2 is a fast level: the JAX engine's frame, as level 1's."""
+    data = _data("mix", B)
+    assert DeviceCompressor("cpu", 2, block_size=B).compress(data) == _jax_frame(data, B)
+
+
+def test_device_compressor_hc_requires_the_native_hc_serializer(monkeypatch):
+    monkeypatch.setattr(native, "lz4_serialize_blocks_hc", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="native LZ4 serializer"):
+        DeviceCompressor("cpu", 9, block_size=4096).compress(b"x" * 10000)

@@ -15,6 +15,10 @@ Each entry counts its route in the registry, under its codec phase: one
 ``lz4.compress.device`` or ``lz4.compress.host``, one
 ``lz4.decompress.device`` or ``lz4.decompress.host`` (the Reader's in-place
 decode of a many-frame entry counts the last), with the entry's bytes.
+``lz4.compress.hc`` counts the bytes LZ4's high-compression mode took
+(levels :data:`HC_LEVEL` and up): on the device route each shard that the
+HC parse serialized (``parallel/pipeline.py``), on the host route each
+entry that the host encoder's hash-chain search wrote.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from . import block, frame
 
 #: entries at least this large go to the device, as in the JAX engine
 DEVICE_MIN = 64 << 10
+#: the first level of LZ4's high-compression mode (LZ4HC_CLEVEL_MIN)
+HC_LEVEL = 3
 
 
 def _linked_frame(data: bytes) -> bool:
@@ -57,6 +63,9 @@ class LZ4Codec(Codec):
                 metrics.count("lz4.compress.device", nbytes=len(data))
                 return DeviceCompressor(dev, level).compress(bytes(data))
             metrics.count("lz4.compress.host", nbytes=len(data))
+            if level >= HC_LEVEL:
+                # the host encoder walks a hash chain as deep as the level asks
+                metrics.count("lz4.compress.hc", nbytes=len(data))
             if len(data) > (2 << 20):
                 # one linked frame per 2 MiB chunk: encode chunks AND
                 # decode frames in parallel; the only ratio cost is one

@@ -4,21 +4,27 @@
 //
 // No TPU kernel does this: the JAX package serializes on the host
 // (zpack_tpu/native.py, zn_lz4_serialize_blocks_pair).  The contract is
-// zpack_tpu_torch/kernels/lz4_torch.py:serialize_plain, bit for bit, which
-// is the bytes of native/zpack_native.cpp:zn_lz4_serialize_blocks_core in
-// the "pair" (src u16, code u8) and "u16" (src << 3 | code) wire formats:
-// for each block of true length cl, a greedy parse from p = 1 below
-// cl - 12; a candidate (j, m) is rejected where m < 4, j < 0, j >= p or
-// p - j > 65535, or where its forward length, m clipped to cl - 5 and
-// extended while bytes agree, is under 4; the match then extends backward
-// down to the previous sequence's end; a block whose compressed bytes
-// would be cl or more is stored raw (size header with the high bit set).
+// zpack_tpu_torch/kernels/lz4_torch.py:serialize_plain, bit for bit, in
+// the "pair" (src u16, code u8) and "u16" (src << 3 | code) wire formats
+// and in two parses.  For each block of true length cl, from p = 1 below
+// cl - 12: a candidate (j, m) is rejected where m < 4, j < 0, j >= p or
+// p - j > 65535, or where its forward length F, m clipped to cl - 5 and
+// extended while bytes agree, is under 4.  The greedy parse (LZ4's fast
+// levels; the bytes of native/zpack_native.cpp:zn_lz4_serialize_blocks_core)
+// takes every accepted match; the HC parse (its high-compression levels;
+// native/lz4_hc.cpp) emits an accepted q with F(q) < kLazyCap as a literal
+// where F(q + 1) > F(q) or F(q + 2) > F(q) + 1, and takes the others.  A
+// match taken at q ends at q + F(q) and extends backward down to the
+// previous sequence's end; a block whose compressed bytes would be cl or
+// more is stored raw (size header with the high bit set).
 //
 // What the design rests on: write q for the next accepted position at or
 // after p and F(q) for its forward length; the chain is p -> q + F(q).
 // Backward extension moves bytes between a sequence's literals and its
 // match but never moves the next p, so the chain depends on forward
-// quantities only, and everything after it is data-parallel.
+// quantities only, and everything after it is data-parallel.  The HC
+// parse's step at q reads F at q, q + 1 and q + 2 only, so the same holds:
+// a literal step is one more kind of step, from q to q + 1.
 //
 //   1. zp_lz4_serialize's walk kernel, one CTA a block (1,024 threads for
 //      blocks over 16 KiB, one CTA an SM; 256 below).  The block's bytes are
@@ -33,7 +39,9 @@
 //         steps (some 8,000 in a block of text), so the walk is
 //         speculative: lane i walks segment i of 32 alone, from the
 //         segment's first position, a step the byte at p (rejected bytes
-//         skipped a word at a time), a 255 settled by the lane no further
+//         skipped a word at a time; in the HC parse a literal step where
+//         the scanned bytes at p + 1 and p + 2 call for one), a 255
+//         settled by the lane no further
 //         than the segment's end (an "open" last match).  Then the join,
 //         the warp in step: the true chain from p = 1, segment by segment,
 //         each step a lane's 4 of the next 128 bytes and a ballot; where it
@@ -86,6 +94,10 @@ constexpr int kUnsettled = 255;
 constexpr int kMaxSettled = 254;
 // byte compares the scan spends past a candidate's m
 constexpr int kScanExtend = 32;
+// the HC parse weighs a literal step only at a match shorter than this: a
+// scanned byte settles every length under it, and one left unsettled
+// (kUnsettled) stands for a length above it (the scan's e >= kMinMatch)
+constexpr int kLazyCap = kMinMatch + kScanExtend;
 // the join reads up to 128 scanned bytes past a position: their pad
 constexpr int kScanPad = 128;
 constexpr int kHeader = 16;
@@ -100,6 +112,7 @@ constexpr int kPlaceThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum : int { kPair = 0, kU16 = 1 };
+enum : int { kGreedy = 0, kHc = 1 };
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
@@ -193,6 +206,13 @@ __device__ __forceinline__ int next_accepted(const uint8_t* scan, int p, int mfl
   return mflim;
 }
 
+// the HC parse's literal step at an accepted q of scanned byte f: a match
+// under kLazyCap gives way where the match at q + 1 is longer, or the one
+// at q + 2 longer by two (255, unsettled, is longer than any such f)
+__device__ __forceinline__ bool lazy_step(const uint8_t* scan, int q, int f) {
+  return f < kLazyCap && (scan[q + 1] > f || scan[q + 2] > f + 1);
+}
+
 // f grown while q + f < limit and the bytes at q + f and j + f agree, by
 // the warp, 32 compares a step
 __device__ __forceinline__ int extend_warp(const uint8_t* s, int q, int j, int f, int limit,
@@ -206,7 +226,7 @@ __device__ __forceinline__ int extend_warp(const uint8_t* s, int q, int j, int f
   }
 }
 
-template <int MODE, int NT>
+template <int MODE, int NT, int PARSE>
 __global__ void __launch_bounds__(NT)
     serialize_kernel(const uint8_t* __restrict__ blocks, int B, long long n, const void* t0,
                      const void* t1, uint32_t* chain, int chain_stride, uint8_t* slots,
@@ -288,6 +308,10 @@ __global__ void __launch_bounds__(NT)
           p = w ? p + ((__ffs(w) - 1) >> 3) : (p & ~3) + 4;
           continue;
         }
+        if (PARSE == kHc && lazy_step(scan, p, f)) {
+          ++p;
+          continue;
+        }
         if (f == kUnsettled) {  // extended no further than the segment's end
           int j, m;
           fetch<MODE>(t0, t1, base + p, j, m);
@@ -317,6 +341,10 @@ __global__ void __launch_bounds__(NT)
         if (q >= hi) {  // nothing accepted before q: the chain goes on from there
           p = q;
           break;
+        }
+        if (PARSE == kHc && lazy_step(scan, q, scan[q])) {  // never a walk's record
+          p = q + 1;
+          continue;
         }
         bool found = false;
         while (c < wc) {
@@ -501,58 +529,69 @@ __global__ void __launch_bounds__(kPlaceThreads)
   }
 }
 
-template <int MODE, int NT>
+template <int MODE, int NT, int PARSE>
 int launch_shape(const void* blocks, int nb, int B, long long n, const void* t0, const void* t1,
                 void* chain, void* slots, int slot_stride, void* sizes, cudaStream_t stream) {
   const int smem = 2 * round16(B) + kScanPad + (3 * NT + NT / 32) * 4;
   const cudaError_t rc = cudaFuncSetAttribute(
-      serialize_kernel<MODE, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      serialize_kernel<MODE, NT, PARSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return int(rc);
-  serialize_kernel<MODE, NT><<<nb, NT, smem, stream>>>(
+  serialize_kernel<MODE, NT, PARSE><<<nb, NT, smem, stream>>>(
       static_cast<const uint8_t*>(blocks), B, n, t0, t1, static_cast<uint32_t*>(chain),
       static_cast<int>(chain_words(B)), static_cast<uint8_t*>(slots), slot_stride,
       static_cast<int*>(sizes));
   return int(cudaGetLastError());
 }
 
-template <int MODE>
+template <int MODE, int PARSE>
 int launch_mode(const void* blocks, int nb, int B, long long n, const void* t0, const void* t1,
                 void* chain, void* slots, int slot_stride, void* sizes, cudaStream_t stream) {
   if (B <= kSmallBlock)
-    return launch_shape<MODE, kSmallThreads>(blocks, nb, B, n, t0, t1, chain, slots,
-                                            slot_stride, sizes, stream);
-  return launch_shape<MODE, kLargeThreads>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride,
-                                          sizes, stream);
+    return launch_shape<MODE, kSmallThreads, PARSE>(blocks, nb, B, n, t0, t1, chain, slots,
+                                                   slot_stride, sizes, stream);
+  return launch_shape<MODE, kLargeThreads, PARSE>(blocks, nb, B, n, t0, t1, chain, slots,
+                                                 slot_stride, sizes, stream);
 }
 
 }  // namespace
 
 // blocks (nb, B) u8, 1 <= B <= 65536, the first n bytes data and zeros past
 // them; mode 0 pair: t0 (nb, B) u16 src, t1 (nb, B) u8 code; 1 u16 (B <=
-// 8192): t0 (nb, B) u16 tokens, t1 unused; chain scratch (nb, chain_len)
+// 8192): t0 (nb, B) u16 tokens, t1 unused; parse 0 greedy, 1 HC; chain scratch (nb, chain_len)
 // u32, chain_len = chain_words(B); slots scratch (nb, slot_stride) u8,
 // slot_stride >= 4 + B + B / 255 + 16 and a multiple of 16; sizes scratch
 // (nb,) i32; out 16 + n + 4 * nb bytes: i64 total and i64 blocks
 // overflowed, then the sections.  Launches the walk and the placement on
 // stream.  Returns cudaGetLastError(), or cudaErrorInvalidValue for an
-// unknown mode or a bad shape.
+// unknown mode or parse or a bad shape.
 extern "C" int zp_lz4_serialize(const void* blocks, int nb, int B, long long n, int mode,
-                                const void* t0, const void* t1, void* chain, long long chain_len,
+                                int parse, const void* t0, const void* t1, void* chain,
+                                long long chain_len,
                                 void* slots, int slot_stride, void* sizes, void* out,
                                 void* stream) {
   if (nb < 1 || B < 1 || B > 65536 || n < 0 || n > static_cast<long long>(nb) * B ||
       chain_len != chain_words(B) ||
       slot_stride < 4 + B + B / 255 + 16 || (slot_stride & 15) != 0 ||
-      (mode == kU16 && B > 8192))
+      (mode == kU16 && B > 8192) || (parse != kGreedy && parse != kHc))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
-  switch (mode) {
-    case kPair:
-      rc = launch_mode<kPair>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride, sizes, st);
+  switch (mode * 2 + parse) {
+    case kPair * 2 + kGreedy:
+      rc = launch_mode<kPair, kGreedy>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride,
+                                       sizes, st);
       break;
-    case kU16:
-      rc = launch_mode<kU16>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride, sizes, st);
+    case kPair * 2 + kHc:
+      rc = launch_mode<kPair, kHc>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride, sizes,
+                                   st);
+      break;
+    case kU16 * 2 + kGreedy:
+      rc = launch_mode<kU16, kGreedy>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride,
+                                      sizes, st);
+      break;
+    case kU16 * 2 + kHc:
+      rc = launch_mode<kU16, kHc>(blocks, nb, B, n, t0, t1, chain, slots, slot_stride, sizes,
+                                  st);
       break;
     default:
       return int(cudaErrorInvalidValue);

@@ -13,7 +13,8 @@
 //   sort   keys (h << 16) | p (unique, so any correct sort gives one order);
 //   match  the `depth` sorted rows above with the same h are the nearest
 //          earlier same-hash positions; a candidate scores its leading equal
-//          bytes capped at capj (under 4 counts as 0), strictly longest wins;
+//          bytes capped at capj <= 32 (under 4 counts as 0), strictly
+//          longest wins (so the walk stops at the first that reaches capj);
 //   rules  p > 0, p < W - 12, ml = min(len, W - 5 - p) >= 4 (at the end of
 //          the window, dictionary included);
 //   out    one epilogue per wire format, for the data positions p >= dict_pad
@@ -59,7 +60,11 @@
 //      (nearest first, so on a tie the nearest wins), compares 4 bytes at a
 //      time from shared memory, and the wire arrays are written in position
 //      order, a warp's stores side by side.  "hash" walks the sorted rows
-//      instead and writes in row order.
+//      instead and writes in row order.  Once a candidate of best_len is
+//      held, a farther one is compared only where its 4 bytes ending at
+//      best_len agree with p's (else it cannot be strictly longer), and the
+//      walk ends at a candidate of capj: the deep chains of LZ4's
+//      high-compression levels cost a compare a link, not a full compare.
 // Windows of up to kSmallWindow bytes (the "u16" mode's 8 KiB blocks, the
 // dictionary path's 6,144 and 10,240) take a CTA of 256 threads with the
 // sorted order in shared memory too, several CTAs an SM.  Larger windows
@@ -90,7 +95,7 @@ constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kMinMatch = 4;
 constexpr int kMfLimit = 12;
 constexpr int kLastLiterals = 5;
-constexpr int kPad = 32;  // zero bytes kept past the window's end (> capj + 7)
+constexpr int kPad = 48;  // zero bytes kept past the window's end (> capj + 7, capj <= 32)
 
 enum Mode { kPair = 0, kU16 = 1, kHash = 2, kScatter = 3 };
 
@@ -298,6 +303,10 @@ tokenize_kernel(const uint8_t* __restrict__ blocks, int W, int dict_pad, int dep
       const int n = prev[c];
       if (n == c) break;  // c is the first position of its hash
       c = n;
+      // strictly longer than the best only where the 4 bytes ending at
+      // best_len agree too: one compare turns most of a deep chain away
+      if (best_len && load_u32(sdata, p + best_len - 3) != load_u32(sdata, c + best_len - 3))
+        continue;
       int len = 0;
       for (int k = 0; k < capj; k += 4) {
         const uint32_t x = load_u32(sdata, p + k) ^ load_u32(sdata, c + k);
@@ -311,6 +320,7 @@ tokenize_kernel(const uint8_t* __restrict__ blocks, int W, int dict_pad, int dep
       if (len >= kMinMatch && len > best_len) {
         best_len = len;
         best_src = c;
+        if (len == capj) break;  // no farther candidate can be strictly longer
       }
     }
     const int ml = min(best_len, W - kLastLiterals - p);

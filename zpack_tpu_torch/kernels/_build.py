@@ -125,7 +125,7 @@ def lib() -> ctypes.CDLL:
             cdll.zp_lz4_replay.restype = i
             cdll.zp_lz4_replay.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p, p, i, p, p, p]
             cdll.zp_lz4_serialize.restype = i
-            cdll.zp_lz4_serialize.argtypes = [p, i, i, ctypes.c_longlong, i, p, p, p,
+            cdll.zp_lz4_serialize.argtypes = [p, i, i, ctypes.c_longlong, i, i, p, p, p,
                                               ctypes.c_longlong, p, i, p, p, p]
             cdll.zp_lz4_parse_walk.restype = i
             cdll.zp_lz4_parse_walk.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]

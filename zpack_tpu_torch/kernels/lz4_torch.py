@@ -49,7 +49,26 @@ LAST_LITERALS = 5
 #: match-length cap of the main path (the JAX "pair" default, n_words=2);
 #: the Pallas kernel's own contract is 16
 CAPJ = 8
+#: the longest comparison of a candidate the match finder takes ("pair"
+#: holds lengths up to 258, "u16" up to 10)
+CAPJ_MAX = 32
+#: the deepest hash chain an LZ4 high-compression level walks: the match
+#: finder's most, at which level 9's create kept within 10% of the greedy
+#: parse's at depth 8 on an H100
+HC_DEPTH_CAP = 64
+#: an HC level's candidate comparison, by wire format: the longest each
+#: holds ("u16" packs a length in 3 bits)
+HC_CAPJ = {"pair": CAPJ_MAX, "u16": 10}
 _HASH_MUL = 2654435761
+
+
+def hc_depth(level: int) -> int:
+    """The match finder's chain depth at an LZ4 high-compression level
+    (3 and up): LZ4HC's search attempts, ``1 << (level - 1)``, at least
+    the JAX engine's 8 and at most :data:`HC_DEPTH_CAP`, which levels 7
+    and up reach.  Levels 10 to 12, LZ4's optimal parser, take level 9's
+    parse and depth: the card has no optimal parser."""
+    return min(max(8, 1 << (level - 1)), HC_DEPTH_CAP)
 
 #: the tokenizer's wire formats, in the order of the kernel's mode argument
 MODES = ("pair", "u16", "hash", "scatter")
@@ -79,8 +98,8 @@ def _check_tokenize(blocks: torch.Tensor, depth: int, capj: int, mode: str = "pa
         raise ValueError(f"window {W} outside 1..65536")
     if not 1 <= depth <= 64:
         raise ValueError(f"depth {depth} outside 1..64")
-    if not MIN_MATCH <= capj <= 16:
-        raise ValueError(f"capj {capj} outside 4..16")
+    if not MIN_MATCH <= capj <= CAPJ_MAX:
+        raise ValueError(f"capj {capj} outside 4..{CAPJ_MAX}")
     if mode not in MODES:
         raise ValueError(f"unknown wire mode {mode!r}")
     if not 0 <= dict_pad < W:
@@ -425,6 +444,15 @@ SERIALIZE_MODES = ("pair", "u16")
 #: total and the count of blocks that overflowed, an int64 each
 SERIALIZE_HEADER = 16
 
+#: the parses the serializer takes, in the order of the kernel's argument:
+#: LZ4's fast levels' greedy parse, and its high-compression levels' lazy one
+PARSES = ("greedy", "hc")
+#: the HC parse weighs a literal step only at a match shorter than this,
+#: which the kernel's scan settles exactly (its kMinMatch + kScanExtend)
+HC_LAZY_CAP = 36
+#: the kernel name a serializer launch is recorded under, by its parse
+SERIALIZE_KEYS = ("lz4_serialize", "lz4_serialize_hc")
+
 _OVERFLOW = ("lz4_serialize: {} block(s) overflowed the serializer's output bound "
              "(match tables the tokenizer did not write)")
 
@@ -451,7 +479,8 @@ def _forward(d: np.ndarray, p: int, j: int, e: int, limit: int) -> int:
     return e
 
 
-def _serialize_block_plain(d: np.ndarray, src: np.ndarray, mlen: np.ndarray, cl: int):
+def _serialize_block_plain(d: np.ndarray, src: np.ndarray, mlen: np.ndarray, cl: int,
+                           parse: str = "greedy"):
     """``(section, overflowed)`` of one block of ``cl`` true bytes, in the
     phases of ``csrc/lz4_serialize.cu``."""
     limit = max(cl - LAST_LITERALS, 0)
@@ -460,9 +489,19 @@ def _serialize_block_plain(d: np.ndarray, src: np.ndarray, mlen: np.ndarray, cl:
     accepted = ((mlen >= MIN_MATCH) & (src >= 0) & (src < pos) & (pos - src <= 65535)
                 & (pos >= 1) & (pos < mflim))
     cand = np.flatnonzero(accepted).tolist()
-    # 1. the chain: from p, the next accepted q and its forward length F(q),
-    #    the match clipped to limit and extended while bytes agree; then
-    #    p = q + F(q), which backward extension never moves
+
+    def forward(q: int) -> int:
+        """F(q): the match clipped to limit and extended while bytes agree,
+        0 where q is rejected or that length is under 4."""
+        if q >= len(accepted) or not accepted[q]:
+            return 0
+        f = _forward(d, q, int(src[q]), min(int(mlen[q]), limit - q), limit)
+        return f if f >= MIN_MATCH else 0
+
+    # 1. the chain: from p, the next accepted q and its forward length F(q);
+    #    then p = q + F(q), which backward extension never moves.  The HC
+    #    parse first weighs a literal step: at F(q) < HC_LAZY_CAP it moves
+    #    to q + 1 where F(q + 1) > F(q) or F(q + 2) > F(q) + 1
     chain = []
     p, i = 1, 0
     while True:
@@ -470,12 +509,15 @@ def _serialize_block_plain(d: np.ndarray, src: np.ndarray, mlen: np.ndarray, cl:
         if i == len(cand):
             break
         q = cand[i]
-        j = int(src[q])
-        f = _forward(d, q, j, min(int(mlen[q]), limit - q), limit)
-        if f < MIN_MATCH:
+        f = forward(q)
+        if f == 0:
             p = q + 1
             continue
-        chain.append((q, j, f))
+        if parse == "hc" and f < HC_LAZY_CAP and (forward(q + 1) > f
+                                                  or forward(q + 2) > f + 1):
+            p = q + 1
+            continue
+        chain.append((q, int(src[q]), f))
         p = q + f
     # 2. backward extension of each sequence, down to the previous one's end
     seqs = []  # (literal start, literal length, offset, match length)
@@ -514,7 +556,7 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _serialize_rows(blocks, arrays, mode: str, n: int):
+def _serialize_rows(blocks, arrays, mode: str, n: int, parse: str = "greedy"):
     """``(sections, blocks that overflowed)`` of the plain version."""
     rows = _host(blocks)
     src, mlen = from_jax_wire(mode, [_host(a) for a in arrays])
@@ -524,44 +566,55 @@ def _serialize_rows(blocks, arrays, mode: str, n: int):
         cl = min(B, n - i * B)
         if cl <= 0:
             break
-        section, o = _serialize_block_plain(rows[i], src[i], mlen[i], cl)
+        section, o = _serialize_block_plain(rows[i], src[i], mlen[i], cl, parse)
         parts.append(section)
         over += o
     return b"".join(parts), over
 
 
-def serialize_plain(blocks, arrays, mode: str, n: int) -> bytes:
+def serialize_plain(blocks, arrays, mode: str, n: int, parse: str = "greedy") -> bytes:
     """The lz4f block sections of a shard, in plain NumPy: the contract of
     ``csrc/lz4_serialize.cu`` and the bytes of
-    ``native.lz4_serialize_blocks_packed(data[:n], mode, arrays, B)``.
+    ``native.lz4_serialize_blocks_packed(data[:n], mode, arrays, B)`` (the
+    greedy parse) and ``native.lz4_serialize_blocks_hc`` (the HC parse).
 
     ``blocks`` (nb, B) uint8, the shard's blocks zero-padded, of which the
     first ``n`` bytes are data; ``arrays`` the tokenizer's wire arrays in
-    ``mode`` ("pair" or "u16").  Each block of true length ``cl`` is a greedy
-    parse from position 1 below ``cl - 12``: a candidate is taken where its
+    ``mode`` ("pair" or "u16").  Each block of true length ``cl`` is parsed
+    from position 1 below ``cl - 12``: a candidate is accepted where its
     length is 4 or more, its source lies before it and at most 65,535 back,
-    and its length, clipped to ``cl - 5`` and extended while bytes agree,
-    is still 4 or more; the match then extends backward down to the
-    previous sequence's end.  Each section is a 4-byte size (the high bit
-    for a block stored raw, which it is where the compressed bytes would
-    be ``cl`` or more) and the payload.  Raises where a block overflows the
-    host serializer's output bound, as that serializer fails."""
-    body, over = _serialize_rows(blocks, arrays, mode, n)
+    and its forward length F, the length clipped to ``cl - 5`` and extended
+    while bytes agree, is still 4 or more.  ``parse`` "greedy" (LZ4's fast
+    levels, 1 and 2) takes every accepted match; "hc" (its high-compression
+    levels, 3 and up) emits an accepted q of F(q) < :data:`HC_LAZY_CAP` as
+    a literal where F(q + 1) > F(q) or F(q + 2) > F(q) + 1 (F 0 at a
+    rejected position) and takes the others.  A match taken at q ends at q
+    + F(q), and extends backward down to the previous sequence's end.  Each
+    section is a 4-byte size (the high bit for a block stored raw, which it
+    is where the compressed bytes would be ``cl`` or more) and the payload.
+    Raises where a block overflows the host serializer's output bound, as
+    that serializer fails."""
+    body, over = _serialize_rows(blocks, arrays, mode, n, parse)
     if over:
         raise RuntimeError(_OVERFLOW.format(over))
     return body
 
 
-def serialize_sections(blocks: torch.Tensor, arrays, mode: str, n: int) -> torch.Tensor:
+def serialize_sections(blocks: torch.Tensor, arrays, mode: str, n: int,
+                       parse: str = "greedy") -> torch.Tensor:
     """The block sections of a shard serialized where its tables are, for
     one read-back.  Returns a uint8 tensor on the device of ``blocks`` of
     ``SERIALIZE_HEADER + n + 4 * nb`` bytes: the sections' total and the
     count of blocks that overflowed (an int64 each), then the sections of
-    :func:`serialize_plain` back to back.  The plain version on the CPU; on
-    a GPU one call of ``csrc/lz4_serialize.cu`` (its walk and its placement
-    kernels), enqueued on the current stream and not waited for."""
+    :func:`serialize_plain` back to back, in ``parse``.  The plain version
+    on the CPU; on a GPU one call of ``csrc/lz4_serialize.cu`` (its walk and
+    its placement kernels), enqueued on the current stream and not waited
+    for; an HC launch is recorded as ``lz4_serialize_hc``."""
     if mode not in SERIALIZE_MODES:
         raise ValueError(f"the serializer takes the 'pair' and 'u16' wire modes, not {mode!r}")
+    if parse not in PARSES:
+        raise ValueError(f"the serializer's parses are {PARSES}, not {parse!r}")
+    k = PARSES.index(parse)
     if blocks.dtype != torch.uint8 or blocks.dim() != 2:
         raise ValueError("blocks must be a (nb, B) uint8 tensor")
     nb, B = blocks.shape
@@ -571,7 +624,7 @@ def serialize_sections(blocks: torch.Tensor, arrays, mode: str, n: int) -> torch
         raise ValueError(f"mode 'u16' packs src into 13 bits: block {B} > 8192")
     size = SERIALIZE_HEADER + n + 4 * nb
     if blocks.device.type == "cpu":
-        body, over = _serialize_rows(blocks, arrays, mode, n)
+        body, over = _serialize_rows(blocks, arrays, mode, n, parse)
         out = torch.zeros(size, dtype=torch.uint8)
         head = torch.tensor([len(body), over], dtype=torch.int64)
         out[:SERIALIZE_HEADER] = head.view(torch.uint8)
@@ -599,12 +652,12 @@ def serialize_sections(blocks: torch.Tensor, arrays, mode: str, n: int) -> torch
     sizes = torch.empty(nb, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.lib().zp_lz4_serialize(
-            blocks.data_ptr(), nb, B, n, SERIALIZE_MODES.index(mode), arrays[0].data_ptr(),
-            arrays[1].data_ptr() if len(arrays) > 1 else None, chain.data_ptr(),
-            chain.shape[1], slots.data_ptr(), slot, sizes.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            blocks.data_ptr(), nb, B, n, SERIALIZE_MODES.index(mode), k,
+            arrays[0].data_ptr(), arrays[1].data_ptr() if len(arrays) > 1 else None,
+            chain.data_ptr(), chain.shape[1], slots.data_ptr(), slot, sizes.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lz4_serialize")
-    launched("lz4_serialize")
+    launched(SERIALIZE_KEYS[k])
     return out
 
 

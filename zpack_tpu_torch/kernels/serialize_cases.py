@@ -4,7 +4,11 @@
 tokenizer's length cap up to the end-of-block limit, lengths past what the
 scan settles, backward extension into literals, candidates at or after
 their own position, lengths the bytes do not bear out, and blocks of every
-kind side by side.
+kind side by side.  :func:`hc_cases` adds the tables of the HC levels
+(deeper chains, longer comparisons) and repeats planted so the HC parse's
+literal steps meet every edge: a longer match one or two bytes on, one
+longer by one only, chains of such steps, and lengths about the cap under
+which the parse weighs them.
 
 :func:`cases` is the one definition: the CPU tests hold ``serialize_plain``
 against ``native.lz4_serialize_blocks_packed`` on it, and the GPU tests and
@@ -41,11 +45,12 @@ def _rows(data: bytes) -> np.ndarray:
     return rows
 
 
-def _tokenized(data: bytes, mode: str):
+def _tokenized(data: bytes, mode: str, depth: int = 2, capj: int | None = None):
     from . import lz4_torch
 
     rows = _rows(data)
-    arrays = lz4_torch.tokenize_plain(torch.from_numpy(rows), 2, lz4_torch.CAPJ, mode)
+    arrays = lz4_torch.tokenize_plain(torch.from_numpy(rows), depth,
+                                      capj or lz4_torch.CAPJ, mode)
     return rows, tuple(a.numpy() for a in arrays), len(data)
 
 
@@ -139,3 +144,56 @@ NAMES = ("text, a tail block of 777 bytes", "an empty shard", "one block of 5 by
          "noise: every block raw", "zeros: runs to the limit", "a period of two",
          "backward extension into literals", "candidates at or after their position",
          "lengths past the scan and past the bytes", "every kind side by side")
+
+
+#: the chain depths of the HC cases' tables: the least an HC level walks,
+#: level 6's, and the cap (level 7 and up; the most the match finder takes)
+HC_DEPTHS = (8, 32, 64)
+
+
+def _planted(rng, n: int, lengths, near: bool) -> bytes:
+    """Noise with copies of earlier bytes planted at random, ``lengths``
+    long.  With ``near`` each copy at q is the match of a shorter one: a
+    copy one or two bytes on, longer by one to three, and then the first
+    ``lengths`` bytes at q copied back to an earlier source, so the match
+    at q meets a longer one at q + 1 or q + 2."""
+    data = bytearray(_noise(rng, n))
+    for _ in range(n // 60):
+        L = int(rng.integers(*lengths))
+        q = int(rng.integers(2 * L + 200, n - 2 * L - 8))
+        src = int(rng.integers(0, q - L - 64))
+        if not near:
+            data[q:q + L] = data[src:src + L]
+            continue
+        step, more = int(rng.integers(1, 3)), int(rng.integers(1, 4))
+        data[q + step:q + step + L + more] = data[src:src + L + more]
+        back = int(rng.integers(0, q - L - 64))
+        data[back:back + L] = data[q:q + L]
+    return bytes(data)
+
+
+@functools.cache
+def hc_cases(mode: str) -> dict:
+    """The shards of the HC parse in wire format ``mode``, by name: their
+    tables from ``tokenize_plain`` at an HC level's comparison
+    (``lz4_torch.HC_CAPJ``) and each of :data:`HC_DEPTHS`."""
+    from . import lz4_torch
+
+    rng = np.random.default_rng(26)
+    capj = lz4_torch.HC_CAPJ[mode]
+    text = _text(rng, 3 * B + 501)
+    near = _planted(rng, 2 * B + 333, (4, 24), True)
+    out = {}
+    for d in HC_DEPTHS:
+        out[f"text at depth {d}"] = _tokenized(text, mode, d, capj)
+        out[f"planted repeats at depth {d}"] = _tokenized(near, mode, d, capj)
+    out["lengths about the lazy cap"] = _tokenized(
+        _planted(rng, 2 * B, (30, 42), True), mode, 32, capj)
+    out["lone repeats"] = _tokenized(_planted(rng, B + 99, (4, 60), False), mode, 32, capj)
+    return out
+
+
+#: the names of :func:`hc_cases`, in its order
+HC_NAMES = tuple(f"{kind} at depth {d}" for d in HC_DEPTHS
+                 for kind in ("text", "planted repeats")) + (
+    "lengths about the lazy cap", "lone repeats")

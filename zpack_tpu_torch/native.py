@@ -1,9 +1,11 @@
 """ctypes loader for the native host backend (native/zpack_native.cpp).
 
 The port's library also holds ``native/zstd_walk.cpp``, the walk of a zstd
-entry into the device decoders' batches (:class:`ZstdWalk`), and
+entry into the device decoders' batches (:class:`ZstdWalk`),
 ``native/zstd_read.cpp``, the host layout of a zstd read on the card
-(``kernels/zstd_chain.py``), which the JAX package's library does not.
+(``kernels/zstd_chain.py``), and ``native/lz4_hc.cpp``, the LZ4 serializer
+of the HC parse (:func:`lz4_serialize_blocks_hc`), which the JAX package's
+library does not.
 
 Builds the shared library on first use with g++, from the repository's
 ``native/`` sources into ``zpack_tpu_torch/_build/`` (which git ignores), so
@@ -36,6 +38,7 @@ _SRCS = [
     _ROOT / "native" / "zstd_encode.cpp",
     _ROOT / "native" / "zstd_walk.cpp",
     _ROOT / "native" / "zstd_read.cpp",
+    _ROOT / "native" / "lz4_hc.cpp",
 ]
 #: headers the sources include: an edited one rebuilds the library too
 _HEADERS = [_ROOT / "zpack_tpu_torch" / "csrc" / "zstd_chain.cuh"]
@@ -181,6 +184,13 @@ def get_lib() -> ctypes.CDLL | None:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
             ctypes.c_void_p, ctypes.c_size_t,
         ]
+        if hasattr(lib, "zn_lz4_serialize_blocks_hc"):
+            lib.zn_lz4_serialize_blocks_hc.restype = ctypes.c_size_t
+            lib.zn_lz4_serialize_blocks_hc.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_size_t,
+            ]
         lib.zn_xxh3_new.restype = ctypes.c_void_p
         lib.zn_xxh3_new.argtypes = []
         lib.zn_xxh3_free.restype = None
@@ -359,6 +369,38 @@ def lz4_serialize_blocks_packed(data: bytes, mode: str, arrays,
             nb, optr, cap))
     else:
         return None
+    if r == _FAIL:
+        return None
+    return out[:r]
+
+
+def lz4_serialize_blocks_hc(data: bytes, mode: str, arrays,
+                            block_size: int) -> bytes | None:
+    """:func:`lz4_serialize_blocks_packed` in the HC parse of LZ4's
+    high-compression levels (``lz4_torch.serialize_plain`` with parse
+    "hc"), from the same wire arrays.  None where the library or its HC
+    entry point is missing, or a block overflows."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "zn_lz4_serialize_blocks_hc"):
+        return None
+    n = len(data)
+    if n == 0:
+        return b""
+    nb = -(-n // block_size)
+    if mode == "pair":
+        t0 = np.ascontiguousarray(arrays[0], dtype=np.uint16)
+        t1 = np.ascontiguousarray(arrays[1], dtype=np.uint8)
+        assert t1.shape == t0.shape
+    elif mode == "u16":
+        t0, t1 = np.ascontiguousarray(arrays[0], dtype=np.uint16), None
+    else:
+        return None
+    assert t0.shape[0] >= nb and t0.shape[1] == block_size
+    cap = n + (n // 255) + 20 * nb + 64
+    out, optr = _bytes_out(cap)
+    r = int(lib.zn_lz4_serialize_blocks_hc(
+        data, n, block_size, 0 if mode == "pair" else 1, t0.ctypes.data,
+        None if t1 is None else t1.ctypes.data, nb, optr, cap))
     if r == _FAIL:
         return None
     return out[:r]

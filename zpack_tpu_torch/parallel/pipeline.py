@@ -16,7 +16,11 @@ dictionary plus the block, is 8 KiB or less, else "pair".
   (``lz4_torch.serialize_sections``), and only the finished sections come
   back; the steps overlap: step s+1 is copied in, tokenized and serialized
   while the host appends step s (pinned buffers, one event a shard).  On
-  the CPU the native serializer writes them from the wire format.
+  the CPU the native serializer writes them from the wire format.  LZ4's
+  fast levels (1 and 2) take the JAX engine's greedy parse at depth 2;
+  its high-compression levels (:data:`HC_LEVEL` and up) an HC mode of the
+  card's own: a deeper chain (``lz4_torch.hc_depth``), longer candidate
+  comparisons (``lz4_torch.HC_CAPJ``) and the serializer's HC parse.
 * ``compress_zstd``: one zstd block per device block; the host parses the
   match tables into sequences, the Huffman literal streams and the FSE
   sequence streams of all blocks are encoded in one launch a mesh device
@@ -27,7 +31,8 @@ dictionary plus the block, is 8 KiB or less, else "pair".
   encoded on the host.
 
 Both frames are byte-identical to the JAX engine's, whatever the step size
-and the mesh.
+and the mesh, except LZ4 frames at HC levels, which the JAX engine writes
+in its greedy parse at depth 8.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..codecs.lz4 import HC_LEVEL
 from ..codecs.lz4 import frame as lz4frame
 from ..codecs.zstd import encode as zenc
 from ..codecs.zstd.dict import as_dictionary
@@ -58,8 +64,15 @@ class DeviceCompressor:
     """Block-parallel LZ4 compressor on a torch device or a device mesh.
 
     ``compress(data)`` returns an lz4f frame of independent blocks, the same
-    bytes as ``MeshCompressor(...).compress(data)`` at the same level and
-    block size, whatever the mesh."""
+    bytes whatever the mesh.  At levels 1 and 2 they are the bytes of
+    ``MeshCompressor(...).compress(data)`` at the same block size: the
+    greedy parse of the match finder's tables at depth 2.  At levels
+    :data:`HC_LEVEL` and up (``parse`` "hc") the match finder walks
+    ``lz4_torch.hc_depth`` candidates compared on up to
+    ``lz4_torch.HC_CAPJ`` bytes, and the serializer takes the HC parse
+    (``lz4_torch.serialize_plain``).
+    ``tokenize`` and ``compress_zstd`` keep the JAX engine's depth, 2 at
+    levels 1 and 2 and 8 above, at every level."""
 
     #: bytes tokenized a step on each mesh device: 256 blocks of 64 KiB,
     #: about two waves of one CTA per block on a 132-SM card
@@ -76,6 +89,7 @@ class DeviceCompressor:
         self.level = level
         self.block_size = block_size
         self.depth = 2 if level <= 2 else 8
+        self.parse = "hc" if level >= HC_LEVEL else "greedy"
         self.blocks_per_step = max(1, self.BYTES_PER_STEP // block_size)
 
     def _mode(self, dict_pad: int = 0) -> str:
@@ -90,16 +104,25 @@ class DeviceCompressor:
             f"dict window {window} too large for the device tokenizer "
             f"(dict + block_size must be <= 65536)")
 
+    def _lz4_match(self, mode: str) -> tuple[int, int]:
+        """``(depth, capj)`` of the match finder for :meth:`compress`'s
+        frames in wire format ``mode``."""
+        if self.parse == "hc":
+            return lz4_torch.hc_depth(self.level), lz4_torch.HC_CAPJ[mode]
+        return self.depth, lz4_torch.CAPJ
+
     def _launch(self, chunk: np.ndarray, mode: str, device: torch.device,
-                dict_dev: torch.Tensor | None, n_data: int | None = None):
+                dict_dev: torch.Tensor | None, match: tuple[int, int],
+                n_data: int | None = None):
         """Enqueue one shard on ``device``: copy in, build the windows (the
         dictionary first), tokenize, copy the wire format of the data
         positions and the shard's estimate out.  Returns the host tensors,
         the estimate last, and the event that marks them ready (None on the
         CPU, where the shard ran synchronously).  With ``n_data``, the
         shard's data bytes (a card only), the blocks are serialized there
-        too, and the one host tensor is the sections' buffer
-        (``lz4_torch.serialize_sections``) in place of the tables."""
+        too, in :attr:`parse`, and the one host tensor is the sections'
+        buffer (``lz4_torch.serialize_sections``) in place of the tables.
+        ``match`` is the tokenizer's ``(depth, capj)``."""
         blocks = torch.from_numpy(chunk)
         cuda = device.type == "cuda"
         blocks = (blocks.pin_memory().to(device, non_blocking=True) if cuda
@@ -108,12 +131,12 @@ class DeviceCompressor:
         if dict_dev is not None:
             dict_pad = dict_dev.numel()
             blocks = torch.cat([dict_dev.expand(len(blocks), dict_pad), blocks], dim=1)
-        arrays, est = lz4_torch.tokenize_est(blocks, self.depth, lz4_torch.CAPJ, mode, dict_pad)
+        arrays, est = lz4_torch.tokenize_est(blocks, *match, mode, dict_pad)
         if not cuda:
             return (*arrays, est), None
         outs = (*arrays, est)
         if n_data is not None:
-            outs = (lz4_torch.serialize_sections(blocks, arrays, mode, n_data),)
+            outs = (lz4_torch.serialize_sections(blocks, arrays, mode, n_data, self.parse),)
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs)
         for h, t in zip(host, outs):
             h.copy_(t, non_blocking=True)
@@ -122,19 +145,21 @@ class DeviceCompressor:
         return host, done
 
     def _steps_raw(self, data: bytes, dictionary: bytes | None = None,
-                   sections: bool = False):
+                   sections: bool = False, match: tuple[int, int] | None = None):
         """Yield (first_block, mode, wire arrays, est) a shard, in block
         order, with step s+1's shards enqueued before step s's are handed to
         the caller.  The wire arrays are ``(src u16, code u8)`` in "pair"
         mode and ``(tok u16,)`` in "u16" mode, each (blocks of the shard,
         B).  ``dictionary`` is copied once to each distinct mesh device.
-        With ``sections`` a shard on a card yields (first_block,
+        ``match`` is the tokenizer's ``(depth, capj)``, by default the JAX
+        engine's.  With ``sections`` a shard on a card yields (first_block,
         :data:`SECTIONS`, (its sections' buffer,), None) instead."""
         B = self.block_size
         n = len(data)
         nb = max(1, math.ceil(n / B))
         flat = np.frombuffer(data, dtype=np.uint8)
         mode = self._mode(len(dictionary) if dictionary else 0)
+        match = match or (self.depth, lz4_torch.CAPJ)
         dict_dev = dict.fromkeys(self.mesh.distinct())
         if dictionary:
             content = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8)
@@ -155,7 +180,7 @@ class DeviceCompressor:
                 on_card = sections and dev.type == "cuda"
                 with metrics.phase("torch.dispatch", len(seg)):
                     launched.append((lo, SECTIONS if on_card else mode, self._launch(
-                        chunk, mode, dev, dict_dev[dev], len(seg) if on_card else None)))
+                        chunk, mode, dev, dict_dev[dev], match, len(seg) if on_card else None)))
             for p in pending:
                 yield self._wait(p)
             pending = launched
@@ -181,25 +206,35 @@ class DeviceCompressor:
         """One lz4f frame of independent blocks: device tokenization, then
         each shard's sections serialized on its card and appended as they
         come back; on the CPU, host serialization by
-        ``native.lz4_serialize_blocks_packed``, which takes the "pair" and
-        the "u16" wire format as they come.  Both write the same bytes."""
+        ``native.lz4_serialize_blocks_packed`` (the greedy parse) or
+        ``native.lz4_serialize_blocks_hc`` (the HC parse), which take the
+        "pair" and the "u16" wire format as they come.  Both routes write
+        the same bytes."""
         data = bytes(data)
         B = self.block_size
         n = len(data)
         # B <= 64 KiB, so the declared frame block size is the smallest, 64 KiB
         out = bytearray(lz4frame._header(64 << 10, True, False, None))
-        for lo, mode, host, _est in self._steps_raw(data, sections=True):
+        hc = self.parse == "hc"
+        match = self._lz4_match(self._mode())
+        for lo, mode, host, _est in self._steps_raw(data, sections=True, match=match):
             end = min(n, (lo + self.blocks_per_step) * B)
             if mode == SECTIONS:
                 with metrics.phase("torch.serialize", end - lo * B):
                     metrics.count("lz4.serialize.device", nbytes=end - lo * B)
+                    if hc:
+                        metrics.count("lz4.compress.hc", nbytes=end - lo * B)
                     out += lz4_torch.sections(host[0])
                 continue
             with metrics.phase("torch.frame", end - lo * B):
                 seg = data[lo * B : end]
             with metrics.phase("torch.serialize", len(seg)):
                 metrics.count("lz4.serialize.host", nbytes=len(seg))
-                body = native.lz4_serialize_blocks_packed(seg, mode, host, B)
+                if hc:
+                    metrics.count("lz4.compress.hc", nbytes=len(seg))
+                    body = native.lz4_serialize_blocks_hc(seg, mode, host, B)
+                else:
+                    body = native.lz4_serialize_blocks_packed(seg, mode, host, B)
             if body is None:
                 raise RuntimeError(
                     "the native LZ4 serializer is unavailable (native.py "
